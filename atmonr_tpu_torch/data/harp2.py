@@ -20,99 +20,6 @@ from atmonr_tpu_torch.utils.device import resolve_device
 
 RAY_CHUNK = int(1e4)
 
-# Views flagged as striped (noticeably fewer valid pixels than average, an
-# L1B sensor artifact) are heavily penalized when ranking candidate views so
-# a clean view always wins over a striped one when both exist.
-STRIPE_PENALTY_DEG = 1000.0
-
-
-def select_rgb_views(
-    view_angles: np.ndarray,
-    valid_counts: np.ndarray,
-    irgb_idx: np.ndarray,
-    *,
-    penalize_striping: bool,
-    mode: str = "nadir",
-) -> list[int]:
-    """Choose one (red, green, blue) view triple for RGB visualization.
-
-    Behavioral parity with the reference's best-view heuristics
-    (reference datasets/harp2.py:126-198), reformulated: a per-view
-    nadir-preference score with a striping penalty, a broadcast spread
-    tensor over red x green x blue angle triples, and ``unravel_index``
-    pair decoding (the reference builds a meshgrid stack and decodes flat
-    argmins with div/mod).
-
-    Args:
-        view_angles: (V,) signed along-track view angles, degrees.
-        valid_counts: (V,) number of non-NaN pixels per view.
-        irgb_idx: (V,) band class per view (0=IR, 1=R, 2=G, 3=B).
-        penalize_striping: detect striped views (valid-pixel count below
-            the mean — only meaningful for L1B granules) and add
-            ``STRIPE_PENALTY_DEG`` to their score.
-        mode: "nadir" picks the most nadir-looking red view; "most_pixels"
-            picks the red view whose matched triple has the largest
-            worst-band valid-pixel count.
-
-    Returns:
-        [red_view, green_view, blue_view] indices into the view axis. When
-        a band has no views the best available view fills all three slots.
-    """
-    striped = np.zeros(view_angles.shape, dtype=bool)
-    if penalize_striping:
-        striped = valid_counts < valid_counts.mean()
-    # lower = better: distance from nadir, with striped views pushed to the
-    # back of the line
-    nadir_score = np.abs(view_angles) + striped * STRIPE_PENALTY_DEG
-
-    views_of = {
-        band: np.flatnonzero(irgb_idx == code)
-        for band, code in (("r", 1), ("g", 2), ("b", 3))
-    }
-
-    if views_of["r"].size == 0:
-        # no red at all: fall back to the single best view of any band
-        best = int(nadir_score.argmin())
-        return [best, best, best]
-    if views_of["g"].size == 0 or views_of["b"].size == 0:
-        # red exists but the triple can't be formed: best red everywhere
-        best = int(views_of["r"][nadir_score[views_of["r"]].argmin()])
-        return [best, best, best]
-
-    # Angular spread of every (r, g, b) candidate triple, by broadcasting:
-    # spread[i, j, k] = max - min over the three view angles. The matched
-    # green/blue pair for each red view is the spread-minimizing (j, k).
-    ar = view_angles[views_of["r"]][:, None, None]
-    ag = view_angles[views_of["g"]][None, :, None]
-    ab = view_angles[views_of["b"]][None, None, :]
-    spread = np.maximum(np.maximum(ar, ag), ab) - np.minimum(
-        np.minimum(ar, ag), ab
-    )
-    n_r = spread.shape[0]
-    flat_best = spread.reshape(n_r, -1).argmin(axis=1)
-    g_pick, b_pick = np.unravel_index(flat_best, spread.shape[1:])
-    green_for = views_of["g"][g_pick]  # (n_r,) matched green per red view
-    blue_for = views_of["b"][b_pick]
-
-    if mode == "nadir":
-        which_red = int(nadir_score[views_of["r"]].argmin())
-    elif mode == "most_pixels":
-        worst_band_pixels = np.minimum(
-            valid_counts[views_of["r"]],
-            np.minimum(valid_counts[green_for], valid_counts[blue_for]),
-        )
-        which_red = int(worst_band_pixels.argmax())
-    else:
-        raise NotImplementedError(
-            f"rgb_mode must be 'nadir' or 'most_pixels', got {mode!r}"
-        )
-    return [
-        int(views_of["r"][which_red]),
-        int(green_for[which_red]),
-        int(blue_for[which_red]),
-    ]
-
-
 @dataclass(frozen=True)
 class SceneTransform:
     """Static scene normalization: ECEF <-> normalized scene coordinates and
@@ -151,8 +58,9 @@ class HARP2Dataset:
     Host-side numpy float64 throughout construction (geolocation accuracy);
     ``rays()`` puts the arrays on ``device``. Fields as in the JAX package:
     ``scale``, ``offset``, ``max_i``, ``img_shp``, ``view_idx``,
-    ``irgb_idx``, ``best_rgb_idx``. Rays are built with the numpy float64
-    path (``geo.wgs84.get_rays``).
+    ``irgb_idx``. Rays are built with the numpy float64 path
+    (``geo.wgs84.get_rays``). The config's ``rgb_mode`` (the RGB view pick
+    of the image writers, not ported yet) is accepted and not read.
     """
 
     def __init__(
@@ -164,7 +72,6 @@ class HARP2Dataset:
         self.device = resolve_device(device)
         self.config = dict(config)
         self.config.setdefault("max_abs_view_angle", 90.0)
-        self.config.setdefault("rgb_mode", "nadir")
         self.granule = granule
 
         self.view_idx, self.irgb_idx = get_indexes(
@@ -186,13 +93,6 @@ class HARP2Dataset:
         self.int_arr = pf(granule.i)
         self.max_i = float(np.nanmax(self.int_arr))
 
-        self.best_rgb_idx = select_rgb_views(
-            self.granule.view_angles[self.view_idx],
-            (~np.isnan(self.int_arr)).sum(axis=0),
-            self.irgb_idx,
-            penalize_striping=granule.level == "L1B",
-            mode=self.config["rgb_mode"],
-        )
         self._init_ray_data(RAY_CHUNK)
         self._device_rays: dict[str, torch.Tensor] | None = None
 

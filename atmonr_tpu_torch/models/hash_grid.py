@@ -216,12 +216,16 @@ def level_indices(
 def _hash_encode_exact(
     table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig
 ) -> torch.Tensor:
-    """The exact f32 per-corner gather (``fwd_mode="xla"``)."""
+    """The exact f32 per-corner gather (``fwd_mode="xla"``), summed over the
+    corners one at a time in corner order (x bit fastest)."""
     outs = []
     for level in range(cfg.n_levels):
         idx, w = level_indices(x, cfg, level)
-        feats = table[cfg.level_offsets[level] + idx]  # (M, 2^D, F)
-        outs.append(torch.sum(feats.to(w.dtype) * w[..., None], dim=1))
+        feats = table[cfg.level_offsets[level] + idx].to(w.dtype)  # (M, 2^D, F)
+        acc = w[:, 0, None] * feats[:, 0]
+        for c in range(1, 1 << cfg.n_dims):
+            acc = acc + w[:, c, None] * feats[:, c]
+        outs.append(acc)
     return torch.cat(outs, dim=-1)
 
 

@@ -3,8 +3,7 @@
 Replaces the TPU kernel ``atmonr_tpu/ops/hash_gather_pallas.py::
 hash_encode_pallas_fwd`` in ``"q8"`` mode. Three parts:
 
-- ``quantize_level_q8`` / ``quantize_tables_q8``: per-level symmetric int8
-  quantization with scale ``s = max|t| / 127``, rounding to nearest or, with
+- ``quantize_tables_q8``: per-level symmetric int8 quantization with scale ``s = max|t| / 127``, rounding to nearest or, with
   noise ``u``, ``floor(t/s + u)`` (stochastic rounding), clipped to +-127.
   Plain tensor ops, as in the JAX package (XLA glue outside the kernel);
   bit-equal to it.
@@ -22,27 +21,9 @@ import functools
 
 import torch
 
-from atmonr_tpu_torch.models.hash_grid import HashGridConfig, level_indices
+from atmonr_tpu_torch.models.hash_grid import HashGridConfig, _hash_encode_exact
 
 _MAX_LEVELS = 32  # kMaxLevels in csrc/hash_gather.cu
-
-
-def quantize_level_q8(
-    table: torch.Tensor,
-    level_offset: int,
-    level_size: int,
-    noise: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(T, F) f32 level slice -> (clipped round(t/s) int32 in [-127, 127],
-    0-d scale ``s = max|t| / 127``). ``noise`` (table-shaped, U[0,1))
-    switches to stochastic rounding ``floor(t/s + u)``."""
-    t = table[level_offset : level_offset + level_size]
-    s = torch.clamp(torch.max(torch.abs(t)), min=1e-30) / 127.0
-    if noise is None:
-        q = torch.round(t / s)
-    else:
-        q = torch.floor(t / s + noise[level_offset : level_offset + level_size])
-    return torch.clamp(q, -127, 127).to(torch.int32), s
 
 
 @functools.cache
@@ -55,10 +36,10 @@ def _row_levels(cfg: HashGridConfig, device: torch.device) -> torch.Tensor:
 def quantize_tables_q8(
     table: torch.Tensor, cfg: HashGridConfig, noise: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """All levels -> (int8 (total_params, F) table, (L,) f32 scales): what
-    ``quantize_level_q8`` gives level by level, in one pass over the table
-    (a per-level max by scatter, then each row divided by its level's
-    scale)."""
+    """All levels -> (int8 (total_params, F) table, (L,) f32 scales), in one
+    pass over the table: a per-level max by scatter, then each row divided
+    by its level's scale. ``noise`` (table-shaped, U[0,1)) switches from
+    rounding to nearest to stochastic rounding ``floor(t/s + u)``."""
     rows = _row_levels(cfg, table.device)
     amax = torch.zeros(cfg.n_levels, dtype=table.dtype, device=table.device)
     amax = amax.scatter_reduce(0, rows, torch.abs(table).amax(dim=1), "amax", include_self=False)
@@ -73,19 +54,11 @@ def hash_gather_q8_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (M, D) positions -> (M, L*F).
 
-    Per level: int8 corner features times the D-linear weights, summed in
-    f32 in corner order (x bit fastest), then multiplied by the level's
-    scale, as the Pallas kernel and ``csrc/hash_gather.cu`` order it."""
-    m = x.shape[0]
-    outs = []
-    for level in range(cfg.n_levels):
-        idx, w = level_indices(x, cfg, level)
-        feats = qtable[cfg.level_offsets[level] + idx].to(torch.float32)
-        acc = torch.zeros((m, cfg.n_features_per_level), device=x.device)
-        for c in range(1 << cfg.n_dims):
-            acc = acc + w[:, c, None] * feats[:, c]
-        outs.append(acc * scales[level])
-    return torch.cat(outs, dim=-1)
+    The exact gather over the int8 features (summed in f32 in corner order,
+    x bit fastest), then one multiply by each level's scale, as the Pallas
+    kernel and ``csrc/hash_gather.cu`` order it."""
+    feats = _hash_encode_exact(qtable.to(torch.float32), x, cfg)
+    return feats * scales.repeat_interleave(cfg.n_features_per_level)
 
 
 @functools.cache

@@ -23,7 +23,8 @@ Phases, each of which raises on failure:
    of 8,192 rays deterministically and 1 with a generator, and checks the
    outputs and that K1 ran for both grids on every forward. Then renders one
    batch on the card and on the CPU with float32 MLP products and compares.
-   Profiles one forward and one refresh (device time by kernel, idle share).
+   Profiles one forward and one refresh (device time by kernel; idle share of
+   the unprofiled median call).
 5. Extraction: ``run_extraction`` over 1,048,576 points along the granule's
    rays, in 32,768-point batches.
 
@@ -279,8 +280,10 @@ def phase_profile(ctx: dict, card: str) -> None:
     """Steady-state times of the deterministic forward (8,192 rays) and of
     the occupancy refresh (host clock around calls that end in a
     synchronize, after a warm-up call), and where the time of one call of
-    each goes: device time by kernel (torch.profiler) against the host wall
-    time of the call; the difference is the card's idle share."""
+    each goes: device time by kernel (torch.profiler). The card's idle share
+    is one less the device time over the unprofiled median call; the share
+    over the profiled call's own wall time, which the profiler lengthens, is
+    printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     pipe, batch = ctx["pipe"], ctx["batch"]
@@ -312,9 +315,10 @@ def phase_profile(ctx: dict, card: str) -> None:
         for e in kernels:
             by_name.setdefault(e.name, []).append(e.device_time_total)
         top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
-        log(f"[profile] {label}: wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
-            f"({busy_us / wall_us:.1%}; idle {1 - busy_us / wall_us:.1%}), "
-            f"{len(kernels)} kernels, on {card}")
+        log(f"[profile] {label}: device busy {busy_us:.0f} us in {len(kernels)} kernels; "
+            f"idle {1 - busy_us / (med * 1e6):.1%} of the unprofiled median call "
+            f"({med * 1e6:.0f} us), {1 - busy_us / wall_us:.1%} of the profiled call "
+            f"({wall_us:.0f} us), on {card}")
         for name, ts in top:
             log(f"[profile]   {sum(ts):8.1f} us  x{len(ts):<4d} {name[:90]}")
 

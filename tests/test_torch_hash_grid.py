@@ -106,20 +106,24 @@ def test_exact_encode_matches_jax_xla(n_dims):
 
 @pytest.mark.parametrize("noise", [False, True], ids=["round", "stochastic"])
 @pytest.mark.parametrize("options", [SMALL, FLAGSHIP], ids=["small", "flagship"])
-def test_quantizer_matches_jax_exactly(options, noise):
-    jc, tc = _cfgs(options, 3, "q8")
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_quantizer_matches_jax_exactly(n_dims, options, noise):
+    """Each level slice of the one-pass table quantizer equals JAX's
+    ``quantize_level_q8`` on that level, exactly."""
+    jc, tc = _cfgs(options, n_dims, "q8")
     table = _table(jc, 4)
     u = np.random.default_rng(5).uniform(size=table.shape).astype(np.float32)
+    tq, ts = thgo.quantize_tables_q8(
+        torch.from_numpy(table), tc, torch.from_numpy(u) if noise else None
+    )
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
     for level in range(jc.n_levels):
-        args = (jc.level_offsets[level], jc.level_sizes[level])
+        off, size = jc.level_offsets[level], jc.level_sizes[level]
         jq, js = jhgp.quantize_level_q8(
-            jnp.asarray(table), *args, jnp.asarray(u) if noise else None
+            jnp.asarray(table), off, size, jnp.asarray(u) if noise else None
         )
-        tq, ts = thgo.quantize_level_q8(
-            torch.from_numpy(table), *args, torch.from_numpy(u) if noise else None
-        )
-        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
-        assert ts.item() == float(js)
+        np.testing.assert_array_equal(tq[off : off + size].numpy(), np.asarray(jq))
+        assert ts[level].item() == float(js)
 
 
 def _pos_ulp_atol(cfg, x, scales):
@@ -137,23 +141,6 @@ def _pos_ulp_atol(cfg, x, scales):
         bound = cfg.n_dims * 2**cfg.n_dims * 127 * float(scales[level]) * np.spacing(pos_max)
         cols += [bound] * cfg.n_features_per_level
     return np.asarray(cols)
-
-
-@pytest.mark.parametrize("noise", [False, True], ids=["round", "stochastic"])
-@pytest.mark.parametrize("options", [SMALL, FLAGSHIP], ids=["small", "flagship"])
-def test_quantize_tables_is_the_per_level_quantizer(options, noise):
-    """The one-pass table quantizer equals ``quantize_level_q8`` level by
-    level (which equals JAX's, above), exactly."""
-    _, tc = _cfgs(options, 3, "q8")
-    table = torch.from_numpy(_table(tc, 13))
-    u = torch.rand(table.shape, generator=torch.Generator().manual_seed(14)) if noise else None
-    q, s = thgo.quantize_tables_q8(table, tc, u)
-    assert q.dtype == torch.int8 and s.dtype == torch.float32
-    for level in range(tc.n_levels):
-        off, size = tc.level_offsets[level], tc.level_sizes[level]
-        ql, sl = thgo.quantize_level_q8(table, off, size, u)
-        assert torch.equal(q[off : off + size].to(torch.int32), ql)
-        assert s[level].item() == sl.item()
 
 
 @pytest.mark.parametrize("noise", [False, True], ids=["round", "stochastic"])

@@ -211,7 +211,7 @@ def test_ray_set_and_scene_transform_match_jax(run):
     assert tds.scale == jds.scale
     np.testing.assert_array_equal(tds.offset, jds.offset)
     assert tds.scene_transform.__dict__ == jds.scene_transform.__dict__
-    assert tds.max_i == jds.max_i and tds.best_rgb_idx == jds.best_rgb_idx
+    assert tds.max_i == jds.max_i
     rays = tds.rays()
     assert rays["origin"].device.type == "cpu" and rays["origin"].dtype == torch.float32
 
