@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -48,10 +49,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to, keyed by source, headers and
+    flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -67,7 +71,7 @@ def build(name: str, verbose: bool = False) -> tuple[Path, str]:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         find_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-        "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"),
+        "-I", str(CSRC_DIR), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -78,6 +82,13 @@ def build(name: str, verbose: bool = False) -> tuple[Path, str]:
         )
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
+
+
+def build_all(names: tuple[str, ...], verbose: bool = False) -> dict[str, tuple[Path, str]]:
+    """``build`` for each name, one ``nvcc`` per source, all started
+    together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(lambda n: build(n, verbose), names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,6 +6,11 @@ in)}, ...]}``; ``surf_enc`` as a list with one dict per surface-encoding
 spec, ``{"hash_table": ...}`` for a HashGrid spec and ``{}`` otherwise.
 Here they are named ``pos_table``, ``<mlp>.layers.<i>.weight`` (the same
 (out, in) matrix) and ``surf_enc.<spec index>``.
+
+Gradients and AdamW moments have the parameters' structure on both sides:
+``params_from_jax`` also takes a ``jax.grad`` result or an optax ``mu`` /
+``nu`` tree, and ``grads_state`` / ``moments_state`` name this package's
+under the same keys, so the two can be laid side by side.
 """
 
 from __future__ import annotations
@@ -58,3 +63,26 @@ def params_to_jax(
         for i in range(n_surf_specs)
     ]
     return tree
+
+
+def grads_state(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The ``.grad`` of every parameter of ``module``, under the
+    parameter's name (zeros where a parameter has no gradient yet)."""
+    return {
+        name: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+        for name, p in module.named_parameters()
+    }
+
+
+def moments_state(
+    module: torch.nn.Module, adamw: torch.optim.Optimizer
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """AdamW's first and second moments (``exp_avg``, ``exp_avg_sq``: optax's
+    ``mu`` and ``nu``) under the parameters' names; zeros before the first
+    update."""
+    mu, nu = {}, {}
+    for name, p in module.named_parameters():
+        state = adamw.state.get(p, {})
+        mu[name] = state["exp_avg"].detach().clone() if state else torch.zeros_like(p)
+        nu[name] = state["exp_avg_sq"].detach().clone() if state else torch.zeros_like(p)
+    return mu, nu

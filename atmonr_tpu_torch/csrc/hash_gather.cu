@@ -6,12 +6,10 @@
 // pallas_call at :459-462 is done here, in the kernel, after the sum).
 //
 // What it computes, per point p and level l (the same ops in the same order
-// as the Pallas kernel and the plain PyTorch version in ops/hash_gather.py):
-//   pos  = x * scale_l + 0.5            (two roundings: __fmul_rn, __fadd_rn)
-//   g    = floor(pos); frac = pos - g; base = clip(int(g), 0, res_l - 2)
+// as the Pallas kernel and the plain PyTorch version in ops/hash_gather.py),
+// with the cell, corner index and weight math of hash_common.cuh, which the
+// table gradient (hash_bwd.cu) shares:
 //   for each of the 2^D corners, x bit fastest:
-//     idx = dense row-major index, or the spatial hash & (T - 1)
-//     w   = prod_d (frac_d or 1 - frac_d), multiplied in dim order
 //     acc += w * q[offset_l + idx]      (f32, corner order, no FMA)
 //   out[p, 2l : 2l + 2] = acc * s_l
 //
@@ -36,22 +34,9 @@
 // Bound through a plain C interface (ctypes); the launch goes on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hash_common.cuh"
 
 namespace {
-
-constexpr int kMaxLevels = 32;
-
-struct LevelParams {
-  float scale[kMaxLevels];
-  int res[kMaxLevels];
-  int offset[kMaxLevels];
-  int dense[kMaxLevels];
-};
-
-// Instant-NGP spatial-hash primes (the first dimension's is 1)
-__device__ __constant__ uint32_t kPrimes[3] = {1u, 2654435761u, 805459861u};
 
 template <int D>
 __global__ void __launch_bounds__(256)
@@ -60,68 +45,26 @@ hash_gather_q8_kernel(const float* __restrict__ x,
                       const float* __restrict__ qscale,
                       float* __restrict__ out, int64_t m, int n_levels,
                       uint32_t hash_mask, const LevelParams lp) {
-  __shared__ float s_scale[kMaxLevels];
-  __shared__ int s_res[kMaxLevels];
-  __shared__ int s_offset[kMaxLevels];
-  __shared__ int s_dense[kMaxLevels];
+  __shared__ LevelTable lt;
   __shared__ float s_q[kMaxLevels];
-  if (threadIdx.x < n_levels) {
-    s_scale[threadIdx.x] = lp.scale[threadIdx.x];
-    s_res[threadIdx.x] = lp.res[threadIdx.x];
-    s_offset[threadIdx.x] = lp.offset[threadIdx.x];
-    s_dense[threadIdx.x] = lp.dense[threadIdx.x];
-    s_q[threadIdx.x] = qscale[threadIdx.x];
-  }
-  __syncthreads();
+  if (threadIdx.x < n_levels) s_q[threadIdx.x] = qscale[threadIdx.x];
+  lt.load(lp, n_levels);  // ends in a __syncthreads()
 
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= m * n_levels) return;
   const int level = static_cast<int>(t % n_levels);
   const int64_t p = t / n_levels;
 
-  const float scale = s_scale[level];
-  const int res = s_res[level];
-  float frac[D];
-  int base[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float pos = __fadd_rn(__fmul_rn(x[p * D + d], scale), 0.5f);
-    const float g = floorf(pos);
-    frac[d] = __fsub_rn(pos, g);
-    base[d] = min(max(static_cast<int>(g), 0), res - 2);
-  }
+  const int res = lt.res[level];
+  const bool dense = lt.dense[level] != 0;
+  const Cell<D> cell(x + p * D, lt.scale[level], res);
 
-  const char2* lvl = table + s_offset[level];
-  const bool dense = s_dense[level] != 0;
+  const char2* lvl = table + lt.offset[level];
   float acc0 = 0.0f, acc1 = 0.0f;
 #pragma unroll
   for (int corner = 0; corner < (1 << D); ++corner) {
-    float w = 1.0f;
-    uint32_t idx;
-    if (dense) {
-      int stride = 1, i = 0;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const int bit = (corner >> d) & 1;
-        i += (base[d] + bit) * stride;
-        stride *= res;
-      }
-      idx = static_cast<uint32_t>(i);
-    } else {
-      uint32_t h = 0u;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const int bit = (corner >> d) & 1;
-        h ^= static_cast<uint32_t>(base[d] + bit) * kPrimes[d];
-      }
-      idx = h & hash_mask;
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int bit = (corner >> d) & 1;
-      w = __fmul_rn(w, bit ? frac[d] : __fsub_rn(1.0f, frac[d]));
-    }
-    const char2 v = lvl[idx];
+    const float w = cell.weight(corner);
+    const char2 v = lvl[cell.index(corner, res, dense, hash_mask)];
     acc0 = __fadd_rn(acc0, __fmul_rn(w, static_cast<float>(v.x)));
     acc1 = __fadd_rn(acc1, __fmul_rn(w, static_cast<float>(v.y)));
   }
@@ -141,12 +84,7 @@ extern "C" int hash_gather_q8(const void* x, const void* table,
   if (n_levels < 1 || n_levels > kMaxLevels) return cudaErrorInvalidValue;
   if (n_dims != 2 && n_dims != 3) return cudaErrorInvalidValue;
   LevelParams lp;
-  for (int l = 0; l < n_levels; ++l) {
-    lp.scale[l] = level_scale[l];
-    lp.res[l] = level_res[l];
-    lp.offset[l] = level_offset[l];
-    lp.dense[l] = level_dense[l];
-  }
+  fill_level_params(lp, n_levels, level_scale, level_res, level_offset, level_dense);
   const int threads = 256;
   const long long work = m * n_levels;
   if (work == 0) return cudaSuccess;

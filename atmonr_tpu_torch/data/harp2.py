@@ -183,6 +183,17 @@ class HARP2Dataset:
             self._device_rays = rays
         return rays
 
+    def target_image(self) -> np.ndarray:
+        """(H, W, V) radiance image with invalid pixels zero-filled."""
+        return self.scatter_image(self.ray_rad)
+
+    def scatter_image(self, pixel_values: np.ndarray) -> np.ndarray:
+        """(num_rays,) per-ray values -> (H, W, V) image at valid locations."""
+        nv = self.view_idx.shape[0]
+        img = np.zeros((self.img_shp[0] * self.img_shp[1] * nv), np.float32)
+        img[self.ray_filter] = pixel_values
+        return img.reshape(self.img_shp[0], self.img_shp[1], nv)
+
     def get_point_preprocessor(self, kind: str):
         """Preprocessor factory: ``"horizontal"`` only."""
         if kind == "horizontal":

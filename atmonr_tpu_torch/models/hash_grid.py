@@ -12,9 +12,11 @@ Counterpart of the JAX package's ``models/hash_grid.py``:
 - all levels in one flat (total_params, F) table.
 
 Two forward modes are ported. ``"xla"`` is the exact f32 per-corner gather,
-plain tensor indexing (the JAX package also computes it outside Pallas).
-``"q8"`` quantizes each level to int8 and gathers with the CUDA kernel of
-``ops/hash_gather.py`` (its plain version on CPU tensors). Every other mode
+plain tensor indexing (the JAX package also computes it outside Pallas);
+autograd differentiates it, the table and the positions. ``"q8"`` quantizes
+each level to int8 and gathers with the CUDA kernel of
+``ops/hash_gather.py`` (its plain version on CPU tensors); its table
+gradient is the CUDA kernel of ``ops/hash_bwd.py``. Every other mode
 raises: the Pallas kernel's bf16/f32/f8 modes (``"auto"`` is bf16) are still
 to be ported.
 """
@@ -32,6 +34,8 @@ _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219
 _U32 = 0xFFFFFFFF
 
 FWD_MODES = ("xla", "q8")
+# every value the JAX package accepts; the port computes one gradient for all
+BWD_MODES = ("auto", "f32", "bf16", "sort")
 
 
 def _align(n: int, m: int = 8) -> int:
@@ -44,8 +48,10 @@ class HashGridConfig:
 
     ``fwd_mode`` is validated at construction: ``"q8"`` or ``"xla"``.
     ``hashed_tile: "on"`` (the pair-bucket hash, a different model) is not
-    ported and raises. The JAX package's ``dense_tile`` and ``bwd_*``
-    options select TPU layouts and the backward, and are not read here.
+    ported and raises. ``bwd_mode`` is validated too: the port computes
+    the exact float32 table gradient for every value the JAX package
+    accepts (``ops/hash_bwd.py``). The JAX package's ``dense_tile`` and
+    ``bwd_sort_pack`` options select TPU layouts, and are not read here.
     """
 
     n_dims: int
@@ -56,8 +62,13 @@ class HashGridConfig:
     per_level_scale: float = 2.0
     fwd_mode: str = "auto"
     hashed_tile: str = "off"
+    bwd_mode: str = "auto"
 
     def __post_init__(self) -> None:
+        if self.bwd_mode not in BWD_MODES:
+            raise ValueError(
+                f"unknown bwd_mode {self.bwd_mode!r}; known: {BWD_MODES}"
+            )
         if self.fwd_mode not in FWD_MODES:
             raise NotImplementedError(
                 f"fwd_mode {self.fwd_mode!r} is not ported: atmonr_tpu_torch "
@@ -84,6 +95,7 @@ class HashGridConfig:
             per_level_scale=float(options["per_level_scale"]),
             fwd_mode=str(options.get("fwd_mode", "auto")),
             hashed_tile=str(options.get("hashed_tile", "off")),
+            bwd_mode=str(options.get("bwd_mode", "auto")),
         )
 
     @cached_property

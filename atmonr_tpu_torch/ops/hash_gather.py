@@ -1,7 +1,7 @@
 """Hash-encode forward over int8 (q8) tables: kernel K1 of the port.
 
 Replaces the TPU kernel ``atmonr_tpu/ops/hash_gather_pallas.py::
-hash_encode_pallas_fwd`` in ``"q8"`` mode. Three parts:
+hash_encode_pallas_fwd`` in ``"q8"`` mode. Four parts:
 
 - ``quantize_tables_q8``: per-level symmetric int8 quantization with scale ``s = max|t| / 127``, rounding to nearest or, with
   noise ``u``, ``floor(t/s + u)`` (stochastic rounding), clipped to +-127.
@@ -12,6 +12,9 @@ hash_encode_pallas_fwd`` in ``"q8"`` mode. Three parts:
   raises; on a CPU tensor it runs ``hash_gather_q8_plain``.
 - ``hash_gather_q8_plain``: the same gathers written with tensor indexing,
   the corner sum in the kernel's order, then the multiply by ``s``.
+- ``hash_encode_q8``: quantize + gather from the float32 master table as a
+  ``torch.autograd.Function`` whose backward is kernel K2
+  (``ops/hash_bwd.py``), straight through the quantizer.
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ import functools
 import torch
 
 from atmonr_tpu_torch.models.hash_grid import HashGridConfig, _hash_encode_exact
-
-_MAX_LEVELS = 32  # kMaxLevels in csrc/hash_gather.cu
+from atmonr_tpu_torch.ops.hash_bwd import check_grid, hash_bwd, level_args
 
 
 @functools.cache
@@ -78,24 +80,8 @@ def _kernel():
     return fn
 
 
-@functools.cache
-def _level_args(cfg: HashGridConfig):
-    """Per-level scale, resolution, table offset and dense flag as C arrays
-    (one small set per grid config)."""
-    n = cfg.n_levels
-    return (
-        (ctypes.c_float * n)(*cfg.level_scales),
-        (ctypes.c_int * n)(*cfg.level_resolutions),
-        (ctypes.c_int * n)(*cfg.level_offsets),
-        (ctypes.c_int * n)(*(int(cfg.level_is_dense(lv)) for lv in range(n))),
-    )
-
-
 def _check_inputs(qtable, scales, x, cfg: HashGridConfig) -> None:
-    if cfg.n_features_per_level != 2:
-        raise ValueError("the q8 gather takes 2 features per level")
-    if cfg.n_dims not in (2, 3) or cfg.n_levels > _MAX_LEVELS:
-        raise ValueError(f"the q8 gather takes D in (2, 3) and <= {_MAX_LEVELS} levels")
+    check_grid(cfg, "the q8 gather")
     if qtable.dtype != torch.int8 or qtable.shape != (cfg.total_params, 2):
         raise ValueError(f"qtable must be int8 ({cfg.total_params}, 2)")
     if scales.dtype != torch.float32 or scales.shape != (cfg.n_levels,):
@@ -122,7 +108,7 @@ def hash_gather_q8(
     if x.device.type != "cuda":
         raise ValueError(f"no q8 gather for device {x.device}")
     fn = _kernel()
-    level_scale, level_res, level_offset, level_dense = _level_args(cfg)
+    level_scale, level_res, level_offset, level_dense = level_args(cfg)
     x = x.contiguous()
     qtable = qtable.contiguous()
     scales = scales.contiguous()
@@ -145,6 +131,25 @@ def hash_gather_q8(
 hash_gather_q8.launches = {2: 0, 3: 0}
 
 
+class _HashEncodeQ8(torch.autograd.Function):
+    """Quantize + gather, with the table gradient straight through the
+    quantizer: the backward is ``hash_bwd`` on the saved positions, the
+    gradient of the float32 master table. It is exact float32 whatever the
+    forward's rounding, and independent of the noise."""
+
+    @staticmethod
+    def forward(ctx, table, x, noise, cfg):
+        ctx.save_for_backward(x)
+        ctx.cfg = cfg
+        qtable, scales = quantize_tables_q8(table, cfg, noise)
+        return hash_gather_q8(qtable, scales, x, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return hash_bwd(x, g.to(torch.float32), ctx.cfg), None, None, None
+
+
 def hash_encode_q8(
     table: torch.Tensor,
     x: torch.Tensor,
@@ -153,12 +158,12 @@ def hash_encode_q8(
 ) -> torch.Tensor:
     """q8 hash encode of (M, D) positions from the f32 master table:
     quantize (with stochastic rounding when ``noise`` is given), then
-    ``hash_gather_q8``. Forward only: the table gradient is kernel K2, still
-    to be ported, so a table that requires grad raises under autograd."""
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise NotImplementedError(
-            "the q8 hash encode has no backward yet (kernel K2, ROADMAP.md "
-            "queue 2); call it under torch.no_grad()"
+    ``hash_gather_q8``. Under autograd the table's gradient is kernel K2
+    (``hash_bwd``); positions get none, so an ``x`` that requires grad
+    raises (the exact ``"xla"`` mode differentiates positions)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(
+            "the q8 hash encode has no position gradient; use fwd_mode "
+            "'xla' to differentiate positions"
         )
-    qtable, scales = quantize_tables_q8(table, cfg, noise)
-    return hash_gather_q8(qtable, scales, x.to(torch.float32), cfg)
+    return _HashEncodeQ8.apply(table, x.to(torch.float32), noise, cfg)

@@ -3,7 +3,9 @@
 The JAX package keeps configuration in the pipeline object and threads the
 parameters through pure functions. Here a pipeline is an ``nn.Module``: its
 parameters and buffers live in it, on ``device``, and ``forward`` /
-``update_aux`` / ``extract`` read them. Train/eval mode is a per-call
+``update_aux`` / ``extract`` read them. ``forward`` is differentiable in
+the parameters; ``compute_loss`` and ``make_optimizer`` complete a train
+step. Train/eval mode is a per-call
 property as in the JAX package: ``forward`` with no generator and no draws
 is the deterministic path.
 """
@@ -17,8 +19,8 @@ from atmonr_tpu_torch.utils.device import resolve_device
 
 
 class Pipeline(nn.Module):
-    """Base class; subclasses implement ``forward``, ``update_aux`` and
-    ``extract``."""
+    """Base class; subclasses implement ``forward``, ``update_aux``,
+    ``extract``, ``compute_loss`` and ``make_optimizer``."""
 
     def __init__(
         self, config: dict, dataset, device: str | torch.device | None = None

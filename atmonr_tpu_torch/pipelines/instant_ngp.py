@@ -1,5 +1,5 @@
 """Instant-NGP pipeline with an occupancy grid and a separate surface branch:
-the inference path of the JAX package's ``pipelines/instant_ngp.py``.
+the counterpart of the JAX package's ``pipelines/instant_ngp.py``.
 
 Per ray batch: occupancy-grid probes at ``n_probe`` stratified points place
 ``n_fine`` samples by piecewise inverse CDF; the 3-D hash encoding of the
@@ -12,8 +12,12 @@ grid by a dense re-evaluation of the density branch, and ``extract``
 queries extinction at scene points.
 
 Both hash encodings run the q8 kernel (K1) when the config says
-``fwd_mode: "q8"``. The loss, the optimizer and the uniform and importance
-samplers (configs without ``occupancy``) are still to be ported.
+``fwd_mode: "q8"``, and their table gradients the scatter-add kernel (K2).
+``forward`` runs under autograd; the inference entry points (``update_aux``,
+``extract``) switch it off themselves. ``compute_loss`` selects the config's
+loss on each ray's own band, and ``make_optimizer`` builds the clipped AdamW.
+The uniform and importance samplers (configs without ``occupancy``) are
+still to be ported.
 """
 
 from __future__ import annotations
@@ -34,8 +38,11 @@ from atmonr_tpu_torch.models.encoders import (
 from atmonr_tpu_torch.models.mlp import SmallMLP
 from atmonr_tpu_torch.ops import occupancy
 from atmonr_tpu_torch.ops.compositor import render_with_surface
+from atmonr_tpu_torch.ops.losses import get_loss
 from atmonr_tpu_torch.ops.samplers import sample_piecewise, sample_uniform_bins
 from atmonr_tpu_torch.pipelines.base import Pipeline
+from atmonr_tpu_torch.training.optim import ClippedAdamW
+from atmonr_tpu_torch.training.schedules import apply_warmup
 
 _POS_MLP_OUT = 16  # intermediate width of the density MLP
 
@@ -96,6 +103,7 @@ class InstantNGPPipeline(Pipeline):
         self.surf_cfgs = hash_grid_configs(self.surf_specs, self.surf_in_dims)
 
         self.max_i = dataset.max_i
+        self.loss_fn = get_loss(config["loss"])
         self.compute_dtype = torch.bfloat16
         self.occ_cfg = occupancy.OccupancyConfig.from_options(config["occupancy"])
 
@@ -237,6 +245,17 @@ class InstantNGPPipeline(Pipeline):
         return pts, z_vals, oc.n_fine
 
     @torch.no_grad()
+    def sample_points(
+        self,
+        ray_batch: Mapping[str, torch.Tensor],
+        draws: Mapping[str, torch.Tensor] | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sample positions of one forward: the (B*n, 3) inputs of the
+        position hash encoder and the (B, n) depths. They depend on the rays,
+        the occupancy grid and the draws only, and carry no gradient."""
+        pts, z_vals, _ = self._sample(ray_batch, draws or {})
+        return torch.reshape(self._encoder_inputs(pts), (-1, self.num_inputs)), z_vals
+
     def forward(
         self,
         ray_batch: Mapping[str, torch.Tensor],
@@ -247,7 +266,9 @@ class InstantNGPPipeline(Pipeline):
 
         Deterministic (midpoint samples, round-to-nearest q8) when neither
         ``generator`` nor ``draws`` is given; otherwise the draws of
-        ``make_draws``, made from ``generator`` or passed in."""
+        ``make_draws``, made from ``generator`` or passed in. Differentiable
+        in the parameters; the occupancy grid and the sample positions carry
+        no gradient."""
         b = ray_batch["origin"].shape[0]
         if generator is not None:
             if draws is not None:
@@ -255,14 +276,14 @@ class InstantNGPPipeline(Pipeline):
             draws = self.make_draws(b, generator)
         draws = draws or {}
         sr_noise = draws.get("sr_noise") if self.pos_sr else None
-        pts, z_vals, n = self._sample(ray_batch, draws)
+        x, z_vals = self.sample_points(ray_batch, draws)
+        n = z_vals.shape[1]
         pts_surf = ray_batch["origin"] + ray_batch["dir"] * ray_batch["len"][:, None]
         pts_surf = (pts_surf + 1.0) / 2.0
 
         dirs = ray_batch["dir"][:, None].expand(b, n, 3)
-        pts = self._encoder_inputs(pts)
 
-        pos_out = self._pos_branch(torch.reshape(pts, (b * n, -1)), sr_noise)
+        pos_out = self._pos_branch(x, sr_noise)
         nd = self.num_density_outputs
         dir_in = torch.cat([torch.reshape(dirs, (b * n, 3)), pos_out[:, nd:]], dim=1)
         dir_enc = apply_composite({}, self.dir_specs, dir_in)
@@ -292,6 +313,27 @@ class InstantNGPPipeline(Pipeline):
             "weights_fine": weights,
             "z_vals_fine": z_vals,
         }
+
+    def compute_loss(
+        self, ray_batch: Mapping[str, torch.Tensor], results: Mapping[str, torch.Tensor]
+    ) -> torch.Tensor:
+        """The config's loss on each ray's own band."""
+        pred = torch.gather(
+            results["color_map_fine"], 1, ray_batch["irgb_idx"][:, None].long()
+        )[:, 0]
+        gt = ray_batch["rad"].to(pred.dtype)
+        return self.loss_fn(pred, gt, self.max_i)
+
+    def make_optimizer(self, optimizer_config: dict, lr_schedule) -> ClippedAdamW:
+        """AdamW behind the global-norm clip; weight decay on the MLPs only,
+        not on the hash tables. ``lr_schedule`` is a float or a function of
+        the optimizer's step count; the config's warmup wraps it."""
+        decay, no_decay = [], []
+        for name, p in self.named_parameters():
+            (no_decay if name == "pos_table" or name.startswith("surf_enc.") else decay).append(p)
+        return ClippedAdamW(
+            decay, no_decay, optimizer_config, apply_warmup(lr_schedule, optimizer_config)
+        )
 
     @torch.no_grad()
     def extract(self, pts: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,22 @@
-"""The port's hash grid and q8 gather (kernel K1's plain version) against
-the JAX package, on the CPU.
+"""The port's hash grid, q8 gather (kernel K1's plain version) and table
+gradient (kernel K2's plain version) against the JAX package, on the CPU.
 
 Inputs come from numpy with fixed seeds and go through both packages. The
-JAX Pallas q8 kernel runs in interpret mode, as tests/test_hash_pallas.py
-runs it.
+JAX Pallas kernels run in interpret mode, as tests/test_hash_pallas.py and
+tests/test_hash_bwd.py run them.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from atmonr_tpu.models import hash_grid as jhg
+from atmonr_tpu.ops import hash_bwd_pallas as jhbp
 from atmonr_tpu.ops import hash_gather_pallas as jhgp
 from atmonr_tpu_torch.models import hash_grid as thg
+from atmonr_tpu_torch.ops import hash_bwd as thbo
 from atmonr_tpu_torch.ops import hash_gather as thgo
 
 # small grids mixing dense and hashed levels (4 levels, 2^9 entries; the
@@ -183,11 +186,157 @@ def test_q8_gather_is_the_plain_version_on_cpu():
     assert thgo.hash_gather_q8.launches == before  # no kernel on the CPU
 
 
-def test_q8_encode_refuses_autograd():
+def _cotangent(n, cfg, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(n, cfg.n_output_dims)).astype(np.float32)
+
+
+def _jax_scatter(jc, x, g):
+    """The dense f32 scatter the JAX package's own tests hold its backward
+    kernels to (tests/test_hash_bwd.py)."""
+    ref = jnp.zeros((jc.total_params, 2))
+    for level in range(jc.n_levels):
+        idx, w = jhg.level_indices(jnp.asarray(x), jc, level)
+        vals = w[..., None] * jnp.asarray(g)[:, None, 2 * level : 2 * level + 2]
+        ref = ref.at[(jc.level_offsets[level] + idx).reshape(-1)].add(vals.reshape(-1, 2))
+    return np.asarray(ref)
+
+
+@pytest.mark.parametrize("mode,rtol", [("f32", 1e-5), ("bf16", 2e-2)])
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_hash_bwd_plain_matches_pallas_interpret(n_dims, mode, rtol):
+    """K2's plain version against the Pallas backward in interpret mode, on
+    dense and hashed levels, positions outside [0, 1] and M not a multiple
+    of the kernel's 4,096-point block. Tolerance, relative to max|dW| as in
+    the JAX package's tests: 1e-5 against its f32 mode (another summation
+    order), 2e-2 against its bf16 mode (bf16 operands; the port's sum is
+    f32 for every mode)."""
+    jc, tc = _cfgs(SMALL, n_dims, "q8")
+    m = 4096 + 77
+    x, g = _points(m, n_dims, 20, -0.2, 1.2), _cotangent(m, jc, 21)
+    want = np.asarray(jhbp.hash_encode_pallas_bwd(jnp.asarray(x), jnp.asarray(g), jc, mode))
+    got = thbo.hash_bwd_plain(torch.from_numpy(x), torch.from_numpy(g), tc).numpy()
+    assert got.shape == want.shape == (tc.total_params, 2) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 1.5)], ids=["in", "out"])
+@pytest.mark.parametrize("options", [SMALL, FLAGSHIP], ids=["small", "flagship"])
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_hash_bwd_plain_matches_jax_scatter(n_dims, options, lo, hi):
+    """Against JAX's dense scatter: the same indices and products, summed in
+    another order; 1e-5 of max|dW|."""
+    jc, tc = _cfgs(options, n_dims, "q8")
+    x, g = _points(1500, n_dims, 22, lo, hi), _cotangent(1500, jc, 23)
+    want = _jax_scatter(jc, x, g)
+    got = thbo.hash_bwd_plain(torch.from_numpy(x), torch.from_numpy(g), tc).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_hash_bwd_is_the_plain_version_on_cpu():
+    _, tc = _cfgs(SMALL, 3, "q8")
+    x = torch.from_numpy(_points(64, 3, 24))
+    g = torch.from_numpy(_cotangent(64, tc, 25))
+    before = dict(thbo.hash_bwd.launches)
+    torch.testing.assert_close(
+        thbo.hash_bwd(x, g, tc), thbo.hash_bwd_plain(x, g, tc), rtol=0, atol=0
+    )
+    assert thbo.hash_bwd.launches == before  # no kernel on the CPU
+    assert thbo.hash_bwd(x[:0], g[:0], tc).abs().sum() == 0
+
+
+@pytest.mark.parametrize(
+    "bad", ["x_dtype", "x_shape", "g_dtype", "g_shape", "features", "device"]
+)
+def test_hash_bwd_rejects_bad_inputs(bad):
+    _, tc = _cfgs(SMALL, 3, "q8")
+    x = torch.from_numpy(_points(8, 3, 26))
+    g = torch.from_numpy(_cotangent(8, tc, 27))
+    if bad == "x_dtype":
+        x = x.double()
+    elif bad == "x_shape":
+        x = x[:, :2]
+    elif bad == "g_dtype":
+        g = g.to(torch.bfloat16)
+    elif bad == "g_shape":
+        g = g[:, :-2]
+    elif bad == "features":
+        tc = thg.HashGridConfig.from_options(
+            dict(SMALL, fwd_mode="xla", n_features_per_level=4), 3
+        )
+    elif bad == "device":
+        x = x.to("meta")
+    with pytest.raises(ValueError):
+        thbo.hash_bwd(x, g, tc)
+
+
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_q8_autograd_is_hash_bwd(n_dims):
+    """The q8 encode's table gradient is K2 on the saved positions, straight
+    through the quantizer: equal to ``hash_bwd_plain`` exactly on the CPU,
+    the same with and without stochastic-rounding noise, and the noise and
+    the positions get no gradient."""
+    _, tc = _cfgs(SMALL, n_dims, "q8")
+    table = torch.from_numpy(_table(tc, 30)).requires_grad_()
+    x = torch.from_numpy(_points(200, n_dims, 31, -0.1, 1.1))
+    g = torch.from_numpy(_cotangent(200, tc, 32))
+    u = torch.from_numpy(np.random.default_rng(33).uniform(size=table.shape).astype(np.float32))
+    want = thbo.hash_bwd_plain(x, g, tc)
+    for noise in (None, u):
+        out = thg.hash_encode(table, x, tc, noise)
+        (got,) = torch.autograd.grad(out, table, g)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(want.abs().max()) > 0
+
+
+def test_q8_encode_refuses_position_gradient():
+    """The JAX pipeline passes ``compute_dx=False``; the q8 encode of the
+    port has no position gradient and says so."""
     _, tc = _cfgs(SMALL, 3, "q8")
     t = torch.from_numpy(_table(tc, 11)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K2"):
-        thg.hash_encode(t, torch.from_numpy(_points(8, 3, 12)), tc)
+    x = torch.from_numpy(_points(8, 3, 12)).requires_grad_()
+    with pytest.raises(ValueError, match="position gradient"):
+        thg.hash_encode(t, x, tc)
+    with torch.no_grad():  # inference never asks
+        assert thg.hash_encode(t, x, tc).shape == (8, 8)
+
+
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_exact_path_gradients_match_jax(n_dims):
+    """Plain autograd through the ``"xla"`` path against ``jax.grad`` of
+    JAX's ``hash_encode`` (custom VJP; on the CPU its exact f32 scatter):
+    the table gradient to 1e-5 of its largest value, and the position
+    gradient (``compute_dx=True``) to rtol 1e-4 plus 1e-5 of its largest
+    value (differences of O(1e-4) features times scales up to 13.5; XLA sums
+    the corners in another order)."""
+    jc, tc = _cfgs(SMALL, n_dims, "xla")
+    table, x = _table(jc, 34) * 1e4, _points(150, n_dims, 35, 0.02, 0.98)
+    g = _cotangent(150, jc, 36)
+
+    def f(t, p):
+        return jnp.sum(jhg.hash_encode(t, p, jc, True) * jnp.asarray(g))
+
+    j_dt, j_dx = jax.grad(f, argnums=(0, 1))(jnp.asarray(table), jnp.asarray(x))
+    t_t = torch.from_numpy(table).requires_grad_()
+    t_x = torch.from_numpy(x).requires_grad_()
+    out = thg.hash_encode(t_t, t_x, tc)
+    t_dt, t_dx = torch.autograd.grad(out, (t_t, t_x), torch.from_numpy(g))
+    j_dt, j_dx = np.asarray(j_dt), np.asarray(j_dx)
+    np.testing.assert_allclose(t_dt.numpy(), j_dt, rtol=0, atol=1e-5 * np.abs(j_dt).max())
+    np.testing.assert_allclose(t_dx.numpy(), j_dx, rtol=1e-4, atol=1e-5 * np.abs(j_dx).max())
+    assert np.abs(j_dx).max() > 0
+
+
+@pytest.mark.parametrize("mode", thg.BWD_MODES)
+def test_every_jax_bwd_mode_is_accepted(mode):
+    """One f32 gradient for every ``bwd_mode`` the JAX config accepts."""
+    jc, tc = _cfgs(dict(SMALL, bwd_mode=mode), 3, "q8")
+    assert tc.bwd_mode == jc.bwd_mode == mode
+
+
+def test_unknown_bwd_mode_raises():
+    with pytest.raises(ValueError, match="bwd_mode"):
+        thg.HashGridConfig.from_options(dict(SMALL, fwd_mode="q8", bwd_mode="f16"), 3)
 
 
 @pytest.mark.parametrize("mode", ["auto", "bf16", "f32", "f8", "q8sr", ""])

@@ -199,7 +199,8 @@ def run(request):
 
 
 def _np(a):
-    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    # the port's forward runs under autograd: its outputs carry a graph
+    return a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def test_ray_set_and_scene_transform_match_jax(run):
@@ -356,9 +357,15 @@ def test_import_leaves_jax_out():
         "import sys, atmonr_tpu_torch\n"
         "import atmonr_tpu_torch.convert, atmonr_tpu_torch._build\n"
         "import atmonr_tpu_torch.ops.hash_gather, atmonr_tpu_torch.data.synthetic\n"
+        "import atmonr_tpu_torch.ops.hash_bwd, atmonr_tpu_torch.ops.losses\n"
+        "import atmonr_tpu_torch.data.batching, atmonr_tpu_torch.scripts.train\n"
+        "import atmonr_tpu_torch.training.trainer, atmonr_tpu_torch.training.optim\n"
+        "import atmonr_tpu_torch.training.schedules, atmonr_tpu_torch.training.metrics\n"
+        "import atmonr_tpu_torch.training.checkpoint\n"
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'atmonr_tpu')\n"
         "       or m.startswith(('jax.', 'optax.', 'atmonr_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert 'atmonr_tpu_torch.ops.hash_gather' in sys.modules\n"
+        "assert 'atmonr_tpu_torch.training.trainer' in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
