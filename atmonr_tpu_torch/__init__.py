@@ -1,11 +1,12 @@
 """AtmoNR in PyTorch and CUDA, beside the JAX package ``atmonr_tpu``.
 
-The Instant-NGP pipeline with the occupancy grid: training (``Trainer``,
-``python -m atmonr_tpu_torch.scripts.train``), ray rendering, the occupancy
-refresh and the extinction query. The q8 hash-encode forward and the
-hash-table gradient are CUDA kernels for sm_90a (``csrc/``, built at first
-use). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``:
+The Instant-NGP pipeline with its three samplers (occupancy grid,
+importance, uniform): training (``Trainer``, ``python -m
+atmonr_tpu_torch.scripts.train``), ray rendering, the occupancy refresh and
+the extinction query. The hash-encode forward over bf16, f32, int8 and
+float8 tables and the hash-table gradient are CUDA kernels for sm_90a
+(``csrc/``, built at first use). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``:
 
     from atmonr_tpu_torch import (
         Trainer, get_dataset, get_pipeline, load_config, run_extraction,

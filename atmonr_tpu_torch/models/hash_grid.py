@@ -11,14 +11,15 @@ Counterpart of the JAX package's ``models/hash_grid.py``:
 - features initialized U(-1e-4, 1e-4);
 - all levels in one flat (total_params, F) table.
 
-Two forward modes are ported. ``"xla"`` is the exact f32 per-corner gather,
-plain tensor indexing (the JAX package also computes it outside Pallas);
-autograd differentiates it, the table and the positions. ``"q8"`` quantizes
-each level to int8 and gathers with the CUDA kernel of
-``ops/hash_gather.py`` (its plain version on CPU tensors); its table
-gradient is the CUDA kernel of ``ops/hash_bwd.py``. Every other mode
-raises: the Pallas kernel's bf16/f32/f8 modes (``"auto"`` is bf16) are still
-to be ported.
+Forward modes, as in the JAX package: ``"xla"`` is the exact f32
+per-corner gather, plain tensor indexing (the JAX package also computes it
+outside Pallas); autograd differentiates it, the table and the positions.
+``"bf16"`` (and ``"auto"``, which means it), ``"f32"``, ``"q8"`` and ``"f8"``
+gather from a table held as bf16, f32, int8 or float8_e4m3fn with the CUDA
+kernel of ``ops/hash_gather.py`` (its plain version on CPU tensors); their
+table gradient is the CUDA kernel of ``ops/hash_bwd.py``, whatever the
+forward's precision. ``resolve_fwd_mode`` says which of them a grid config
+runs: it is the JAX package's TPU dispatch, a function of the config alone.
 """
 
 from __future__ import annotations
@@ -33,7 +34,12 @@ import torch
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
 _U32 = 0xFFFFFFFF
 
-FWD_MODES = ("xla", "q8")
+FWD_MODES = ("auto", "xla", "bf16", "f32", "q8", "f8")
+# what resolve_fwd_mode returns: the four kernel modes and the two plain gathers
+KERNEL_MODES = ("bf16", "f32", "q8", "f8")
+# the JAX package runs q8 and f8 only where every level has at most this
+# many entries (its Pallas gate); larger grids compute the exact f32 gather
+MAX_QUANTIZED_LEVEL_ENTRIES = 1 << 16
 # every value the JAX package accepts; the port computes one gradient for all
 BWD_MODES = ("auto", "f32", "bf16", "sort")
 
@@ -46,7 +52,7 @@ def _align(n: int, m: int = 8) -> int:
 class HashGridConfig:
     """Static configuration of a multiresolution hash grid.
 
-    ``fwd_mode`` is validated at construction: ``"q8"`` or ``"xla"``.
+    ``fwd_mode`` is validated at construction (``FWD_MODES``).
     ``hashed_tile: "on"`` (the pair-bucket hash, a different model) is not
     ported and raises. ``bwd_mode`` is validated too: the port computes
     the exact float32 table gradient for every value the JAX package
@@ -70,16 +76,13 @@ class HashGridConfig:
                 f"unknown bwd_mode {self.bwd_mode!r}; known: {BWD_MODES}"
             )
         if self.fwd_mode not in FWD_MODES:
-            raise NotImplementedError(
-                f"fwd_mode {self.fwd_mode!r} is not ported: atmonr_tpu_torch "
-                "runs 'q8' (the int8 CUDA kernel) and 'xla' (the exact f32 "
-                "gather). The Pallas kernel's bf16, f32 and f8 modes ('auto' "
-                "is bf16) are ROADMAP.md queue 2, 'K1 other modes'."
+            raise ValueError(
+                f"unknown fwd_mode {self.fwd_mode!r}; known: {FWD_MODES}"
             )
         if self.hashed_tile != "off":
             raise NotImplementedError(
                 f"hashed_tile {self.hashed_tile!r} is not ported: the "
-                "pair-bucket hash is ROADMAP.md queue 1, 'Reference-capacity "
+                "pair-bucket hash is ROADMAP.md queue 1, 'Pair-bucket "
                 "configs'."
             )
 
@@ -241,6 +244,41 @@ def _hash_encode_exact(
     return torch.cat(outs, dim=-1)
 
 
+def resolve_fwd_mode(cfg: HashGridConfig) -> str:
+    """What ``hash_encode`` computes for ``cfg``: the JAX package's TPU
+    dispatch (its ``_fwd_dispatch`` with the Pallas gate ``supported``), as
+    a function of the config alone; never of the device or of a build.
+
+    Returns one of ``KERNEL_MODES`` (the kernel of that table type),
+    ``"xla"`` (the exact f32 gather) or ``"xla_bf16"`` (the exact gather
+    over the bf16-rounded table):
+
+    - ``"xla"`` is exact; ``"auto"`` is ``"bf16"``;
+    - ``"bf16"`` rounds the table to bf16 at every table size (beyond its
+      Pallas gate the TPU gathers the bf16-cast table with XLA: the same
+      numbers). The kernel takes 2 features and D in (2, 3); other grids
+      gather the rounded table plainly;
+    - ``"q8"`` and ``"f8"`` quantize only inside the gate (2 features, D in
+      (2, 3), every level at most 2^16 entries); beyond it the TPU computes
+      the exact f32 gather, and so does this: ``"f32"``;
+    - ``"f32"`` is the kernel where it takes the grid, else the exact
+      gather, which computes the same numbers.
+
+    A kernel mode with more levels than the kernels take raises at the
+    kernel's wrapper; no mode turns to the plain gather for that."""
+    mode = "bf16" if cfg.fwd_mode == "auto" else cfg.fwd_mode
+    if mode == "xla":
+        return "xla"
+    two_features_2d_or_3d = cfg.n_features_per_level == 2 and cfg.n_dims in (2, 3)
+    if mode in ("q8", "f8"):
+        if two_features_2d_or_3d and max(cfg.level_sizes) <= MAX_QUANTIZED_LEVEL_ENTRIES:
+            return mode
+        mode = "f32"
+    if two_features_2d_or_3d:
+        return mode
+    return "xla_bf16" if mode == "bf16" else "xla"
+
+
 def hash_encode(
     table: torch.Tensor,
     x: torch.Tensor,
@@ -250,10 +288,15 @@ def hash_encode(
     """Multiresolution hash encoding of (M, D) positions -> (M, L*F).
 
     ``sr_noise``: optional table-shaped U[0,1) tensor enabling stochastic
-    rounding of the ``q8`` quantization; ignored by ``"xla"``.
+    rounding of the ``q8`` quantization; ignored by every other mode.
     """
-    if cfg.fwd_mode == "q8":
-        from atmonr_tpu_torch.ops.hash_gather import hash_encode_q8
+    mode = resolve_fwd_mode(cfg)
+    if mode in KERNEL_MODES:
+        from atmonr_tpu_torch.ops.hash_gather import hash_encode_kernel
 
-        return hash_encode_q8(table, x, cfg, sr_noise)
+        return hash_encode_kernel(table, x, cfg, mode, sr_noise if mode == "q8" else None)
+    if mode == "xla_bf16":
+        # the rounded table, with the f32 table gradient straight through
+        # the cast (rounded - table is exact, so the sum is the rounded value)
+        table = table + (table.to(torch.bfloat16).to(table.dtype) - table).detach()
     return _hash_encode_exact(table, x, cfg)

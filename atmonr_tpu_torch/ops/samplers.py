@@ -1,11 +1,12 @@
-"""Ray-march samplers: stratified bins and the piecewise-constant inverse
-CDF behind the occupancy grid.
+"""Ray-march samplers: stratified bins, the inverse CDF of coarse
+compositing weights (importance sampling), and the piecewise-constant
+inverse CDF behind the occupancy grid.
 
 Counterpart of the JAX package's ``ops/samplers.py``. Randomness comes in
 as explicit draw tensors (``None`` selects the deterministic midpoint
 variant used by eval and the parity tests); callers make the draws from a
-``torch.Generator``. ``sample_pdf`` and ``append_heights`` are still to be
-ported with the NeRF pipeline.
+``torch.Generator``. ``append_heights`` is still to be ported, with
+``include_height`` and the NeRF pipeline.
 """
 
 from __future__ import annotations
@@ -56,6 +57,59 @@ def sample_uniform_bins(
         z_unit = bins + t_in_bin / n_bins
     z_vals = z_unit * ray_batch["len"][:, None]
     pts = origin[:, None] + ray_batch["dir"][:, None] * z_vals[..., None]
+    return pts, z_vals
+
+
+def sample_pdf(
+    ray_batch: Mapping[str, torch.Tensor],
+    pdf_discrete: torch.Tensor,
+    z_vals_c: torch.Tensor,
+    n_samples: int = 128,
+    u: torch.Tensor | None = None,
+):
+    """Importance-sample the coarse density pdf along each ray.
+
+    Inverts the discrete CDF built from the coarse compositing weights (the
+    first and last weight trimmed, 1e-8 added to each), merges the new
+    samples with the coarse depths and sorts. The bin width carries no
+    gradient.
+
+    Args:
+        ray_batch: dict with "origin" (B, 3), "dir" (B, 3), "len" (B,).
+        pdf_discrete: (B, N_c, 1) coarse weights.
+        z_vals_c: (B, N_c) coarse sample distances.
+        n_samples: number of fine samples to draw.
+        u: (B, n_samples) U[0,1) quantiles, or None for the evenly spaced
+            midpoints ``(i + 0.5) / n_samples``.
+
+    Returns:
+        pts: (B, N_c + n_samples, 3). z_vals: (B, N_c + n_samples), sorted.
+    """
+    w = pdf_discrete[:, 1:-1, 0] + 1e-8
+    pdf = w / torch.sum(w, dim=1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=1)
+
+    if u is None:
+        u = (torch.arange(n_samples, dtype=cdf.dtype, device=cdf.device) + 0.5) / n_samples
+        u = u.expand(cdf.shape[0], n_samples)
+    inds = _rank_right(cdf, u)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+
+    z_vals_mid = 0.5 * (z_vals_c[..., 1:] + z_vals_c[..., :-1])
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    bins_b = torch.gather(z_vals_mid, -1, below)
+    bins_a = torch.gather(z_vals_mid, -1, above)
+
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-8, torch.ones_like(denom), denom)
+    t_in_bin = (u - cdf_b) / denom
+    samples = bins_b + t_in_bin * (bins_a - bins_b).detach()
+
+    z_vals = torch.sort(torch.cat([z_vals_c, samples], dim=-1), dim=-1).values
+    pts = ray_batch["origin"][:, None] + ray_batch["dir"][:, None] * z_vals[..., None]
     return pts, z_vals
 
 

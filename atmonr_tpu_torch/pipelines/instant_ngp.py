@@ -1,8 +1,13 @@
-"""Instant-NGP pipeline with an occupancy grid and a separate surface branch:
-the counterpart of the JAX package's ``pipelines/instant_ngp.py``.
+"""Instant-NGP pipeline with a separate surface branch: the counterpart of
+the JAX package's ``pipelines/instant_ngp.py``.
 
-Per ray batch: occupancy-grid probes at ``n_probe`` stratified points place
-``n_fine`` samples by piecewise inverse CDF; the 3-D hash encoding of the
+Per ray batch, one of three samplers places the samples. With ``occupancy``,
+occupancy-grid probes at ``n_probe`` stratified points place ``n_fine``
+samples by piecewise inverse CDF. With ``importance_sampler``, a coarse
+density pass over ``n_coarse`` stratified points (no gradient, no rounding
+noise) gives compositing weights whose inverse CDF places ``n_fine`` more,
+merged with the coarse ones. Otherwise ``num_samples_per_ray`` stratified
+bins. Then the 3-D hash encoding of the
 [0,1]-remapped, altitude-compressed points feeds the density MLP (16
 outputs, the first 1-or-num_bands are densities); SH(dirs) + identity
 (features) feed the color MLP; the surface branch hashes the remapped
@@ -11,13 +16,13 @@ surface point in 2-D, adds SH(dirs) and feeds the surface color MLP;
 grid by a dense re-evaluation of the density branch, and ``extract``
 queries extinction at scene points.
 
-Both hash encodings run the q8 kernel (K1) when the config says
-``fwd_mode: "q8"``, and their table gradients the scatter-add kernel (K2).
-``forward`` runs under autograd; the inference entry points (``update_aux``,
-``extract``) switch it off themselves. ``compute_loss`` selects the config's
-loss on each ray's own band, and ``make_optimizer`` builds the clipped AdamW.
-The uniform and importance samplers (configs without ``occupancy``) are
-still to be ported.
+Both hash encodings run the gather kernel (K1) in the mode their
+``fwd_mode`` resolves to (``models/hash_grid.py::resolve_fwd_mode``; a config
+that names none runs bf16), and their table gradients the scatter-add kernel
+(K2). ``forward`` runs under autograd; the inference entry points
+(``update_aux``, ``extract``) switch it off themselves. ``compute_loss``
+selects the config's loss on each ray's own band, and ``make_optimizer``
+builds the clipped AdamW. ``include_height`` is still to be ported.
 """
 
 from __future__ import annotations
@@ -37,9 +42,9 @@ from atmonr_tpu_torch.models.encoders import (
 )
 from atmonr_tpu_torch.models.mlp import SmallMLP
 from atmonr_tpu_torch.ops import occupancy
-from atmonr_tpu_torch.ops.compositor import render_with_surface
+from atmonr_tpu_torch.ops.compositor import render, render_with_surface
 from atmonr_tpu_torch.ops.losses import get_loss
-from atmonr_tpu_torch.ops.samplers import sample_piecewise, sample_uniform_bins
+from atmonr_tpu_torch.ops.samplers import sample_pdf, sample_piecewise, sample_uniform_bins
 from atmonr_tpu_torch.pipelines.base import Pipeline
 from atmonr_tpu_torch.training.optim import ClippedAdamW
 from atmonr_tpu_torch.training.schedules import apply_warmup
@@ -53,7 +58,8 @@ class InstantNGPPipeline(Pipeline):
     Parameters: ``pos_table`` (the 3-D hash table), ``pos_mlp``, ``dir_mlp``,
     ``surf_enc`` (the surface hash table of each HashGrid spec, keyed by its
     index in the composite) and ``surf_mlp``. Buffer: ``occ``, the occupancy
-    grid. ``compute_dtype`` is bf16 for the MLP products (the tcnn fp16
+    grid, where the config has one (``occ_cfg`` is None otherwise, and
+    ``init_aux`` / ``update_aux`` do nothing). ``compute_dtype`` is bf16 for the MLP products (the tcnn fp16
     analog); parity checks set it to float32.
     """
 
@@ -70,14 +76,9 @@ class InstantNGPPipeline(Pipeline):
         )
         if config["include_height"]:
             raise NotImplementedError(
-                "include_height needs append_heights (ROADMAP.md queue 1, "
-                "'The rest of the Instant-NGP pipeline')"
-            )
-        if not config.get("occupancy"):
-            raise NotImplementedError(
-                "only the occupancy-grid sampler is ported; the uniform and "
-                "importance samplers are ROADMAP.md queue 1, 'The rest of the "
-                "Instant-NGP pipeline'"
+                "include_height needs append_heights and a 4-D position "
+                "grid (ROADMAP.md queue 1, 'include_height and the NeRF "
+                "pipeline')"
             )
         self.num_inputs = 3
         ngp = config["instant_ngp"]
@@ -105,7 +106,11 @@ class InstantNGPPipeline(Pipeline):
         self.max_i = dataset.max_i
         self.loss_fn = get_loss(config["loss"])
         self.compute_dtype = torch.bfloat16
-        self.occ_cfg = occupancy.OccupancyConfig.from_options(config["occupancy"])
+        self.occ_cfg = None
+        if config.get("occupancy"):
+            self.occ_cfg = occupancy.OccupancyConfig.from_options(config["occupancy"])
+        imp = config.get("importance_sampler") or None
+        self.importance = (int(imp["n_coarse"]), int(imp["n_fine"])) if imp else None
 
         dev = self.device
         f = self.pos_cfg.n_features_per_level
@@ -118,7 +123,8 @@ class InstantNGPPipeline(Pipeline):
                 for i, c in self.surf_cfgs.items()
             }
         )
-        self.register_buffer("occ", occupancy.init_grid(self.occ_cfg, dev))
+        if self.occ_cfg is not None:
+            self.register_buffer("occ", occupancy.init_grid(self.occ_cfg, dev))
         self.init_params(generator if generator is not None else torch.Generator().manual_seed(0))
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -173,7 +179,8 @@ class InstantNGPPipeline(Pipeline):
     # -- occupancy grid ------------------------------------------------------
 
     def init_aux(self) -> None:
-        self.occ.fill_(1.0)
+        if self.occ_cfg is not None:
+            self.occ.fill_(1.0)
 
     @torch.no_grad()
     def update_aux(
@@ -184,8 +191,10 @@ class InstantNGPPipeline(Pipeline):
         """Dense density re-evaluation at cell points -> EMA-max grid update,
         in place. The points are jittered within their cells by ``jitter``
         ((num_cells, 3) U[0,1)), or by draws from ``generator``; cell
-        centers when both are None."""
+        centers when both are None. Nothing without an occupancy grid."""
         oc = self.occ_cfg
+        if oc is None:
+            return
         if generator is not None:
             if jitter is not None:
                 raise ValueError("pass a generator or jitter, not both")
@@ -221,28 +230,57 @@ class InstantNGPPipeline(Pipeline):
     ) -> dict[str, torch.Tensor]:
         """The random draws of one stochastic forward, from ``generator``:
         ``sr_noise`` (pos-table shaped U[0,1), with stochastic rounding),
-        ``probe`` ((B, n_probe) U[0,1) positions within the probe bins) and
-        ``fine`` ((B, n_fine) U[0, 1/n_fine) quantile jitter)."""
-        oc = self.occ_cfg
+        then the sampler's. Occupancy: ``probe`` ((B, n_probe) U[0,1)
+        positions within the probe bins) and ``fine`` ((B, n_fine)
+        U[0, 1/n_fine) quantile jitter). Importance: ``coarse`` ((B,
+        n_coarse) U[0,1) positions within the bins) and ``fine`` ((B, n_fine)
+        U[0,1) quantiles). Uniform: ``bins`` ((B, num_samples_per_ray)
+        U[0,1) positions within the bins)."""
         draws = {}
         if self.pos_sr:
             draws["sr_noise"] = _uniform(tuple(self.pos_table.shape), generator, self.device)
-        draws["probe"] = _uniform((batch_size, oc.n_probe), generator, self.device)
-        draws["fine"] = _uniform(
-            (batch_size, oc.n_fine), generator, self.device
-        ) * (1.0 / oc.n_fine)
+        if self.occ_cfg is not None:
+            oc = self.occ_cfg
+            draws["probe"] = _uniform((batch_size, oc.n_probe), generator, self.device)
+            draws["fine"] = _uniform(
+                (batch_size, oc.n_fine), generator, self.device
+            ) * (1.0 / oc.n_fine)
+        elif self.importance:
+            n_c, n_f = self.importance
+            draws["coarse"] = _uniform((batch_size, n_c), generator, self.device)
+            draws["fine"] = _uniform((batch_size, n_f), generator, self.device)
+        else:
+            n = int(self.config["num_samples_per_ray"])
+            draws["bins"] = _uniform((batch_size, n), generator, self.device)
         return draws
 
     def _sample(
         self, ray_batch: Mapping[str, torch.Tensor], draws: Mapping[str, torch.Tensor]
     ) -> tuple[torch.Tensor, torch.Tensor, int]:
-        """Occupancy-guided sample positions along rays -> (pts, z_vals, n)."""
-        oc = self.occ_cfg
-        pts_p, _ = sample_uniform_bins(ray_batch, oc.n_probe, draws.get("probe"))
-        u = self._unit_coords(pts_p)
-        w = occupancy.probe_weights(self.occ, u, oc)
-        pts, z_vals = sample_piecewise(ray_batch, w, oc.n_fine, draws.get("fine"))
-        return pts, z_vals, oc.n_fine
+        """Sample positions along rays -> (pts, z_vals, n), by the config's
+        sampler: occupancy grid, importance or uniform. The importance
+        sampler's coarse pass evaluates the density branch (first density
+        output, no rounding noise); the caller switches autograd off."""
+        if self.occ_cfg is not None:
+            oc = self.occ_cfg
+            pts_p, _ = sample_uniform_bins(ray_batch, oc.n_probe, draws.get("probe"))
+            u = self._unit_coords(pts_p)
+            w = occupancy.probe_weights(self.occ, u, oc)
+            pts, z_vals = sample_piecewise(ray_batch, w, oc.n_fine, draws.get("fine"))
+            return pts, z_vals, oc.n_fine
+        if not self.importance:
+            n = int(self.config["num_samples_per_ray"])
+            pts, z_vals = sample_uniform_bins(ray_batch, n, draws.get("bins"))
+            return pts, z_vals, n
+        n_c, n_f = self.importance
+        b = ray_batch["origin"].shape[0]
+        pts_c, z_c = sample_uniform_bins(ray_batch, n_c, draws.get("coarse"))
+        enc_in = self._encoder_inputs(pts_c)
+        pos_out = self._pos_branch(torch.reshape(enc_in, (b * n_c, -1)))
+        sigma_c = self.density_act(pos_out[:, :1]).reshape(b, n_c, 1)
+        _, _, w_c = render(z_c * (self.scale / 1000.0), torch.ones_like(sigma_c), sigma_c)
+        pts, z_vals = sample_pdf(ray_batch, w_c.float(), z_c, n_f, draws.get("fine"))
+        return pts, z_vals, n_c + n_f
 
     @torch.no_grad()
     def sample_points(
@@ -252,7 +290,8 @@ class InstantNGPPipeline(Pipeline):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """The sample positions of one forward: the (B*n, 3) inputs of the
         position hash encoder and the (B, n) depths. They depend on the rays,
-        the occupancy grid and the draws only, and carry no gradient."""
+        the draws and the occupancy grid (or, with the importance sampler,
+        the density branch), and carry no gradient."""
         pts, z_vals, _ = self._sample(ray_batch, draws or {})
         return torch.reshape(self._encoder_inputs(pts), (-1, self.num_inputs)), z_vals
 

@@ -49,31 +49,95 @@ def test_kernel_matches_plain(dev, n_dims, lo, hi, stochastic):
     of the largest output."""
     cfg, table, noise, x = _inputs(n_dims, 5000, n_dims, dev, lo, hi)
     q, s = hgo.quantize_tables_q8(table, cfg, noise if stochastic else None)
-    before = hgo.hash_gather_q8.launches[n_dims]
-    got = hgo.hash_gather_q8(q, s, x, cfg)
+    before = hgo.hash_gather.launches[("q8", n_dims)]
+    got = hgo.hash_gather(q, s, x, cfg)
     torch.cuda.synchronize()
-    assert hgo.hash_gather_q8.launches[n_dims] == before + 1
-    want = hgo.hash_gather_q8_plain(q, s, x, cfg)
+    assert hgo.hash_gather.launches[("q8", n_dims)] == before + 1
+    want = hgo.hash_gather_plain(q, s, x, cfg)
     assert got.shape == (5000, 32)
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 1.5)], ids=["in", "out"])
+@pytest.mark.parametrize("mode", ["bf16", "f32", "f8"])
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_kernel_mode_matches_plain(dev, n_dims, mode, lo, hi):
+    """The bf16, f32 and f8 instances: the same ops in the same order as
+    the plain version over the decoded table, equal to 1e-6 of the largest
+    output; only the launched instance's count moves."""
+    cfg, table, _, x = _inputs(n_dims, 5000, 40 + n_dims, dev, lo, hi)
+    prepared, scales = hgo.prepare_table(table, cfg, mode)
+    before = dict(hgo.hash_gather.launches)
+    got = hgo.hash_gather(prepared, scales, x, cfg)
+    torch.cuda.synchronize()
+    moved = {k for k, v in hgo.hash_gather.launches.items() if v != before[k]}
+    assert moved == {(mode, n_dims)}
+    want = hgo.hash_gather_plain(prepared, scales, x, cfg)
+    assert got.shape == (5000, 32) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    if mode == "f32":  # the exact gather, bit for bit
+        assert torch.equal(got, hg._hash_encode_exact(table, x, cfg))
+
+
+def test_f8_kernel_decodes_every_code(dev):
+    """The kernel's hand decode of float8_e4m3fn equals torch's cast for the
+    254 codes that are not NaN. A one-level dense 2-D grid of 17 x 17
+    vertices (scale 16) is read at ``x = (i + 0.5) / 16``, where ``pos`` is
+    the integer ``i + 1`` exactly: weight 1 on one vertex and 0 on the other
+    three, so the output is that vertex's decoded code times the scale."""
+    cfg = hg.HashGridConfig(n_dims=2, n_levels=1, log2_hashmap_size=10, base_resolution=17,
+                            per_level_scale=1.0, fwd_mode="f8")
+    assert cfg.level_is_dense(0) and cfg.level_scales == (16.0,) and cfg.total_params == 296
+    iy, ix = torch.meshgrid(torch.arange(15), torch.arange(15), indexing="ij")
+    ix, iy = ix.reshape(-1), iy.reshape(-1)
+    codes = torch.arange(256, dtype=torch.uint8)
+    codes[(codes & 0x7F) == 0x7F] = 0
+    table = torch.zeros((296, 2), dtype=torch.uint8)
+    rows = (ix + 1) + (iy + 1) * 17
+    table[rows, 0] = codes[:225]
+    table[rows, 1] = codes[31:]  # the two features together hold every code
+    table = table.view(torch.float8_e4m3fn).to(dev)
+    scales = torch.full((1,), 0.5, device=dev)
+    x = ((torch.stack([ix, iy], dim=-1).float() + 0.5) / 16.0).to(dev)
+    got = hgo.hash_gather(table, scales, x, cfg).cpu()
+    want = torch.stack([codes[:225], codes[31:]], dim=1).view(torch.float8_e4m3fn).float() * 0.5
+    assert torch.equal(got, want) and float(want.abs().max()) == 224.0
+    assert torch.equal(got, hgo.hash_gather_plain(table, scales, x, cfg).cpu())
 
 
 def test_kernel_rejects_bad_inputs(dev):
     cfg, table, _, x = _inputs(3, 64, 1, dev)
     q, s = hgo.quantize_tables_q8(table, cfg)
     with pytest.raises(ValueError):
-        hgo.hash_gather_q8(q.to(torch.int32), s, x, cfg)
+        hgo.hash_gather(q.to(torch.int32), s, x, cfg)
     with pytest.raises(ValueError):
-        hgo.hash_gather_q8(q, s, x.double(), cfg)
+        hgo.hash_gather(q, s, x.double(), cfg)
     with pytest.raises(ValueError):
-        hgo.hash_gather_q8(q.cpu(), s, x, cfg)
+        hgo.hash_gather(q.cpu(), s, x, cfg)
+    with pytest.raises(ValueError):
+        hgo.hash_gather(q, None, x, cfg)
+    with pytest.raises(ValueError):
+        hgo.hash_gather(table, s, x, cfg)
 
 
-def test_empty_batch(dev):
+@pytest.mark.parametrize("mode", hg.KERNEL_MODES)
+def test_empty_batch(dev, mode):
     cfg, table, _, _ = _inputs(2, 1, 2, dev)
-    q, s = hgo.quantize_tables_q8(table, cfg)
-    out = hgo.hash_gather_q8(q, s, torch.empty((0, 2), device=dev), cfg)
+    prepared, scales = hgo.prepare_table(table, cfg, mode)
+    out = hgo.hash_gather(prepared, scales, torch.empty((0, 2), device=dev), cfg)
     assert out.shape == (0, 32)
+
+
+def test_quantizers_match_the_cpu(dev):
+    """The table preparations on the card equal the CPU's bit for bit
+    (frexp / ldexp scales, the float8 and bfloat16 casts)."""
+    cfg, table, noise, _ = _inputs(3, 1, 3, dev)
+    table[5, 0] = 448.0 * 2.0**-20  # a level whose max / 448 is a power of two
+    for mode in hg.KERNEL_MODES:
+        a, sa = hgo.prepare_table(table, cfg, mode, noise if mode == "q8" else None)
+        b, sb = hgo.prepare_table(table.cpu(), cfg, mode, noise.cpu() if mode == "q8" else None)
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), mode
+        assert (sa is None and sb is None) or torch.equal(sa.cpu(), sb), mode
 
 
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 1.5), (0.4, 0.41)], ids=["in", "out", "clustered"])
@@ -94,17 +158,20 @@ def test_bwd_kernel_matches_plain(dev, n_dims, lo, hi):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("mode", hg.KERNEL_MODES)
 @pytest.mark.parametrize("n_dims", [2, 3])
-def test_q8_autograd_runs_both_kernels(dev, n_dims):
-    """The table gradient of the q8 encode on the card is K2, whatever the
-    rounding noise, and agrees with the plain version on the CPU."""
+def test_q8_autograd_runs_both_kernels(dev, n_dims, mode):
+    """The table gradient of every kernel mode's encode on the card is K2,
+    whatever the rounding noise, and agrees with the plain version on the
+    CPU."""
     cfg, table, noise, x = _inputs(n_dims, 3000, 30 + n_dims, dev)
+    cfg = hg.HashGridConfig.from_options(dict(OPTIONS, fwd_mode=mode), n_dims)
     table.requires_grad_()
     g = torch.from_numpy(np.random.default_rng(21).normal(size=(3000, 32)).astype(np.float32)).to(dev)
-    before = (hgo.hash_gather_q8.launches[n_dims], hbo.hash_bwd.launches[n_dims])
+    before = (hgo.hash_gather.launches[(mode, n_dims)], hbo.hash_bwd.launches[n_dims])
     (got,) = torch.autograd.grad(hg.hash_encode(table, x, cfg, noise), table, g)
     torch.cuda.synchronize()
-    assert (hgo.hash_gather_q8.launches[n_dims], hbo.hash_bwd.launches[n_dims]) == (
+    assert (hgo.hash_gather.launches[(mode, n_dims)], hbo.hash_bwd.launches[n_dims]) == (
         before[0] + 1, before[1] + 1)
     want = hbo.hash_bwd_plain(x.cpu(), g.cpu(), cfg)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -156,7 +223,7 @@ def test_trainer_trains_and_resumes_on_the_card(dev, tmp_path):
     grid, the loss falls, and a resumed run keeps AdamW's step counts on the
     host (on the card every step would wait for them) and carries on."""
     first = _small_trainer(tmp_path, dev)
-    before = (dict(hgo.hash_gather_q8.launches), dict(hbo.hash_bwd.launches))
+    before = ({d: hgo.hash_gather.launches[("q8", d)] for d in (2, 3)}, dict(hbo.hash_bwd.launches))
     losses = []
     for it in first.iterate(tmp_path / "out"):
         losses.append(first.last_loss)
@@ -164,7 +231,8 @@ def test_trainer_trains_and_resumes_on_the_card(dev, tmp_path):
             first._preempted = True
     assert first.iter_count == 4
     assert hbo.hash_bwd.launches == {d: before[1][d] + 4 for d in (2, 3)}
-    assert hgo.hash_gather_q8.launches == {2: before[0][2] + 4, 3: before[0][3] + 4 + 2}
+    assert {d: hgo.hash_gather.launches[("q8", d)] for d in (2, 3)} == {
+        2: before[0][2] + 4, 3: before[0][3] + 4 + 2}
     losses = torch.stack(losses).cpu()
     assert bool(torch.isfinite(losses).all()) and float(losses[-1]) < float(losses[0])
     second = _small_trainer(tmp_path, dev)

@@ -170,6 +170,72 @@ def test_sample_piecewise(stochastic):
     assert torch.all(tz[:, 1:] >= tz[:, :-1])
 
 
+def _coarse_weights(b, n_c, seed):
+    """Coarse compositing weights with the hard cases: a ray whose weights
+    are all zero (a flat pdf of 1e-8 per bin, and fine depths that tie
+    with nothing), one with a run of zero bins (CDF steps of 1e-8 / sum,
+    under the ``denom < 1e-8`` guard), and one with all its mass in one bin."""
+    w = np.random.default_rng(seed).uniform(0.0, 0.2, (b, n_c, 1)).astype(np.float32)
+    w[2] = 0.0
+    w[4, 3:7] = 0.0
+    w[6] = 0.0
+    w[6, 5] = 0.7
+    return w
+
+
+@pytest.mark.parametrize("stochastic", [False, True], ids=["mid", "draws"])
+@pytest.mark.parametrize("n_fine", [6, 16])
+def test_sample_pdf(n_fine, stochastic):
+    """``sample_pdf`` on the same weights, depths and quantiles: depths to
+    rtol 1e-6 (the cumulative sum and the division run in the same order)
+    and sorted on both sides, so equal depths order the same."""
+    b, n_c = 19, 10
+    jb, tb = _rays(b, 20)
+    w = _coarse_weights(b, n_c, 21)
+    z_c = np.sort(np.random.default_rng(22).uniform(0, 1, (b, n_c)), axis=1).astype(np.float32)
+    z_c *= np.asarray(tb["len"])[:, None]
+    key = jax.random.PRNGKey(23) if stochastic else None
+    jp, jz = jsamp.sample_pdf(jb, jnp.asarray(w), jnp.asarray(z_c), n_fine, key=key)
+    u = None
+    if stochastic:
+        u = torch.tensor(np.asarray(jax.random.uniform(key, (b, n_fine))))
+    tp, tz = tsamp.sample_pdf(tb, torch.from_numpy(w), torch.from_numpy(z_c), n_fine, u)
+    assert tz.shape == (b, n_c + n_fine) and tp.shape == (b, n_c + n_fine, 3)
+    _close(tz, jz, rtol=1e-6, atol=0)
+    _close(tp, jp, atol=1e-6)
+    assert torch.all(tz[:, 1:] >= tz[:, :-1])
+    # the coarse depths are all in the merged set
+    for row, zc in zip(tz.numpy(), z_c):
+        assert np.isin(zc, row).all()
+
+
+def test_sample_pdf_midpoints_for_any_count():
+    """The deterministic quantiles ``(i + 0.5) / n`` for counts that are not
+    powers of two, where a product with the rounded reciprocal would differ
+    from the division in the last place: equal to eager JAX."""
+    b, n_c = 5, 9
+    jb, tb = _rays(b, 24)
+    w = _coarse_weights(8, n_c, 25)[:b]
+    z_c = np.sort(np.random.default_rng(26).uniform(0, 1, (b, n_c)), axis=1).astype(np.float32)
+    for n in (3, 7, 24, 48, 100):
+        _, jz = jsamp.sample_pdf(jb, jnp.asarray(w), jnp.asarray(z_c), n)
+        _, tz = tsamp.sample_pdf(tb, torch.from_numpy(w), torch.from_numpy(z_c), n)
+        _close(tz, jz, rtol=1e-6, atol=0)
+
+
+def test_coarse_weights_come_from_render():
+    """The importance sampler's coarse weights: ``render`` with unit color
+    and a (B, n_c, 1) density gives (B, n_c, 1) weights equal to JAX's, to
+    rtol 1e-5 plus an ulp of 1.0 (``alpha = 1 - exp(...)``)."""
+    rng = np.random.default_rng(27)
+    z = np.sort(rng.uniform(0, 30, (7, 12)), axis=1).astype(np.float32)
+    sigma = rng.uniform(0, 0.5, (7, 12, 1)).astype(np.float32)
+    _, _, jw = jcomp.render(jnp.asarray(z), jnp.ones((7, 12, 1), jnp.float32), jnp.asarray(sigma))
+    _, _, tw = tcomp.render(torch.from_numpy(z), torch.ones((7, 12, 1)), torch.from_numpy(sigma))
+    assert tw.shape == jw.shape == (7, 12, 1)
+    _close(tw, jw, rtol=1e-5, atol=2.0**-23)
+
+
 def test_rank_right_matches_compare_and_sum():
     rng = np.random.default_rng(10)
     cdf = np.sort(rng.uniform(size=(9, 7)).astype(np.float32), axis=1)

@@ -334,13 +334,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_nerf_and_uniform_sampler_wait():
+    """The NeRF pipeline and ``include_height`` still wait; the uniform
+    sampler (a config without ``occupancy``) no longer does."""
     config = _config("q8")
     ds = get_dataset(config["dataset"], SCENE, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_pipeline(dict(config["pipeline"], type="NeRF"), ds, device="cpu")
-    no_occ = {k: v for k, v in config["pipeline"].items() if k != "occupancy"}
+    tall = dict(config["pipeline"], include_height=True, point_preprocessor=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pipeline(no_occ, ds, device="cpu")
+        get_pipeline(tall, ds, device="cpu")
+    no_occ = {k: v for k, v in config["pipeline"].items() if k != "occupancy"}
+    pipe = get_pipeline(no_occ, ds, device="cpu")
+    assert pipe.occ_cfg is None and "occ" not in pipe.state_dict()
 
 
 def test_load_config_matches_jax():
