@@ -21,32 +21,60 @@
 namespace {
 
 constexpr int kMaxLevels = 32;
+// ops/kernel_plan.py plans with the same numbers as the next four.
+// K1: a staged block takes kGroupLevels consecutive levels, one 32-byte
+// sector of an output row. K2: a thread walks up to kRunPoints consecutive
+// points. A staged block of K2 (one level's accumulators in shared memory)
+// and a direct block of either kernel.
+constexpr int kGroupLevels = 4;
+constexpr int kRunPoints = 8;
+constexpr int kStagedThreads = 512;
+constexpr int kDirectThreads = 256;
+// Dynamic shared memory a block may use on sm_90 (227 KB); the staged
+// kernels hold no static shared memory.
+constexpr int kMaxDynamicShared = 232448;
 
-// Per-level constants, passed to a kernel by value and staged in shared
-// memory by LevelTable::load.
+// Per-level constants, passed to a kernel by value. A block that works on
+// one level reads its entry straight from the parameters.
 struct LevelParams {
   float scale[kMaxLevels];
   int res[kMaxLevels];
   int offset[kMaxLevels];
   int dense[kMaxLevels];
+  int rows[kMaxLevels];  // of the level's slice of the table
 };
 
 // Host side: copy the caller's per-level arrays into the by-value struct.
 inline void fill_level_params(LevelParams& lp, int n_levels,
                               const float* level_scale, const int* level_res,
-                              const int* level_offset, const int* level_dense) {
+                              const int* level_offset, const int* level_dense,
+                              const int* level_rows) {
   for (int l = 0; l < n_levels; ++l) {
     lp.scale[l] = level_scale[l];
     lp.res[l] = level_res[l];
     lp.offset[l] = level_offset[l];
     lp.dense[l] = level_dense[l];
+    lp.rows[l] = level_rows[l];
   }
+}
+
+// Host side, once per kernel instance and before any launch of it that a
+// CUDA graph captures: allow a kernel its dynamic shared memory beyond
+// 48 KB, and give the SM's L1 / shared memory split to shared memory.
+template <typename Kernel>
+inline cudaError_t allow_full_shared_memory(Kernel kernel) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicShared);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // Instant-NGP spatial-hash primes (the first dimension's is 1)
 __device__ __constant__ uint32_t kPrimes[3] = {1u, 2654435761u, 805459861u};
 
-// The block's copy of the per-level constants.
+// A block's copy of the per-level constants in shared memory, for a kernel
+// whose threads work on different levels.
 struct LevelTable {
   float scale[kMaxLevels];
   int res[kMaxLevels];
@@ -80,6 +108,14 @@ struct Cell {
       frac[d] = __fsub_rn(pos, g);
       base[d] = min(max(static_cast<int>(g), 0), res - 2);
     }
+  }
+
+  // Whether `other` lies in the same cell: then its corners are the same rows.
+  __device__ __forceinline__ bool same_cell(const Cell& other) const {
+    bool same = true;
+#pragma unroll
+    for (int d = 0; d < D; ++d) same = same && base[d] == other.base[d];
+    return same;
   }
 
   // Row of corner `corner` within the level's table slice.

@@ -8,8 +8,10 @@ the corner indices and weights of the forward. It reads ``x`` and ``g`` only,
 never the forward's quantization.
 
 - ``hash_bwd``: the wrapper of the CUDA kernel ``csrc/hash_bwd.cu`` (float32
-  atomic adds). On a CUDA tensor it launches the kernel, or raises; on a CPU
-  tensor it runs ``hash_bwd_plain``.
+  atomic adds: block by block in shared memory where ``ops/kernel_plan.py``
+  stages the launch's levels, straight into the table where it does not). On
+  a CUDA tensor it launches the kernel, or raises; on a CPU tensor it runs
+  ``hash_bwd_plain``.
 - ``hash_bwd_plain``: the same sum with ``level_indices`` and ``index_add_``.
 
 Both compute exact float32 products and a float32 sum, whatever ``bwd_mode``
@@ -28,20 +30,22 @@ import functools
 import torch
 
 from atmonr_tpu_torch.models.hash_grid import HashGridConfig, level_indices
+from atmonr_tpu_torch.ops.kernel_plan import MAX_LEVELS, level_plan
 
-MAX_LEVELS = 32  # kMaxLevels in csrc/hash_common.cuh
+ACC_BYTES = 8  # a staged row's two float32 accumulators
 
 
 @functools.cache
 def level_args(cfg: HashGridConfig):
-    """Per-level scale, resolution, table offset and dense flag as C arrays
-    (one small set per grid config), as both kernels take them."""
+    """Per-level scale, resolution, table offset, dense flag and row count
+    as C arrays (one small set per grid config), as both kernels take them."""
     n = cfg.n_levels
     return (
         (ctypes.c_float * n)(*cfg.level_scales),
         (ctypes.c_int * n)(*cfg.level_resolutions),
         (ctypes.c_int * n)(*cfg.level_offsets),
         (ctypes.c_int * n)(*(int(cfg.level_is_dense(lv)) for lv in range(n))),
+        (ctypes.c_int * n)(*cfg.level_sizes),
     )
 
 
@@ -79,7 +83,8 @@ def _kernel():
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
@@ -99,16 +104,17 @@ def hash_bwd(x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig) -> torch.Ten
     (total_params, 2) f32 table cotangent.
 
     CUDA tensors go to the kernel of ``csrc/hash_bwd.cu`` (built at first
-    use) on the current stream, and each launch adds one to
-    ``hash_bwd.launches[D]``; a failed build or launch raises. CPU tensors
-    go to ``hash_bwd_plain``. Other devices raise."""
+    use) on the current stream, the levels as ``level_plan`` takes them, and
+    each launch adds one to ``hash_bwd.launches[D]``; a failed build or
+    launch raises. CPU tensors go to ``hash_bwd_plain``. Other devices
+    raise."""
     _check_inputs(x, g, cfg)
     if x.device.type == "cpu":
         return hash_bwd_plain(x, g, cfg)
     if x.device.type != "cuda":
         raise ValueError(f"no hash-table gradient for device {x.device}")
     fn = _kernel()
-    level_scale, level_res, level_offset, level_dense = level_args(cfg)
+    plan = level_plan(cfg, x.shape[0], ACC_BYTES, True)
     x = x.contiguous()
     g = g.contiguous()
     out = torch.zeros((cfg.total_params, 2), dtype=torch.float32, device=x.device)
@@ -119,7 +125,8 @@ def hash_bwd(x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig) -> torch.Ten
         err = fn(
             x.data_ptr(), g.data_ptr(), out.data_ptr(),
             x.shape[0], cfg.n_dims, cfg.n_levels, cfg.hashmap_size - 1,
-            level_scale, level_res, level_offset, level_dense, stream,
+            *level_args(cfg),
+            int(plan.staged), plan.chunk_points, plan.shared_bytes, plan.run_points, stream,
         )
     if err != 0:
         raise RuntimeError(f"hash_bwd launch failed: CUDA error {err}")

@@ -39,6 +39,7 @@ from atmonr_tpu_torch.models.hash_grid import (
     _hash_encode_exact,
 )
 from atmonr_tpu_torch.ops.hash_bwd import check_grid, hash_bwd, level_args
+from atmonr_tpu_torch.ops.kernel_plan import level_plan
 
 TABLE_DTYPES = {
     "bf16": torch.bfloat16,
@@ -49,6 +50,7 @@ TABLE_DTYPES = {
 _MODE_OF_DTYPE = {dtype: mode for mode, dtype in TABLE_DTYPES.items()}
 _ELEM = {"q8": 0, "bf16": 1, "f32": 2, "f8": 3}  # `elem` of csrc/hash_gather.cu
 _SCALED = ("q8", "f8")
+ROW_BYTES = {"q8": 2, "bf16": 4, "f32": 8, "f8": 2}  # of a table row, two features
 F8_MAX = 448.0  # the largest float8_e4m3fn
 
 
@@ -140,7 +142,8 @@ def _kernel():
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
@@ -175,18 +178,21 @@ def hash_gather(
     with the last two).
 
     CUDA tensors go to the kernel of ``csrc/hash_gather.cu`` (built at first
-    use) on the current stream, and each launch adds one to
-    ``hash_gather.launches[(mode, D)]``; a failed build or launch raises.
-    CPU tensors go to ``hash_gather_plain``. Other devices raise."""
+    use) on the current stream, the levels as ``level_plan`` takes them, and
+    each launch adds one to ``hash_gather.launches[(mode, D)]``; a failed
+    build or launch raises. CPU tensors go to ``hash_gather_plain``. Other
+    devices raise."""
     mode = _check_inputs(table, scales, x, cfg)
     if x.device.type == "cpu":
         return hash_gather_plain(table, scales, x, cfg)
     if x.device.type != "cuda":
         raise ValueError(f"no hash gather for device {x.device}")
     fn = _kernel()
-    level_scale, level_res, level_offset, level_dense = level_args(cfg)
+    plan = level_plan(cfg, x.shape[0], ROW_BYTES[mode], False)
     x = x.contiguous()
     table = table.contiguous()
+    if plan.staged and table.data_ptr() % 16:  # a block copies a level 16 bytes at a time
+        table = table.clone()
     scales = None if scales is None else scales.contiguous()
     out = torch.empty((x.shape[0], cfg.n_output_dims), dtype=torch.float32, device=x.device)
     if x.shape[0] == 0:
@@ -196,7 +202,8 @@ def hash_gather(
         err = fn(
             x.data_ptr(), table.data_ptr(), None if scales is None else scales.data_ptr(),
             out.data_ptr(), x.shape[0], cfg.n_dims, cfg.n_levels, cfg.hashmap_size - 1,
-            level_scale, level_res, level_offset, level_dense, _ELEM[mode], stream,
+            *level_args(cfg), _ELEM[mode],
+            int(plan.staged), plan.chunk_points, plan.shared_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"hash_gather ({mode}) launch failed: CUDA error {err}")

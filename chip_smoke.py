@@ -21,7 +21,11 @@ Phases, each of which raises on failure:
    ``configs/instant_ngp_occ21.json``, which does not fit the L2 cache (the
    bound counts of each level the rows that the points can need). K2
    (the hash-table gradient, float32 atomics, so not bit-reproducible): max
-   abs error <= 1e-5 * max|dW| on uniform points.
+   abs error <= 1e-5 * max|dW| on uniform points; also with every point in
+   one cell of the finest level, where all adds of a level contend for 2^D
+   rows (<= 1e-4 * max|dW|). Each line ends with how the level plan
+   (``atmonr_tpu_torch/ops/kernel_plan.py``) took the levels (staged in shared
+   memory or direct), the shared memory and the blocks of the launch.
 4. Slice: loads ``configs/instant_ngp_tpu_occ13.json`` unchanged, builds a
    ``synthetic:128x64x2`` granule and the pipeline on the card (random
    weights from seed 0), refreshes the occupancy grid once, renders 4 batches
@@ -39,7 +43,9 @@ Phases, each of which raises on failure:
    once per grid per step (K1 once more per refresh). Then times 16-step
    blocks of steady steps, profiles one step, holds K2 to its plain
    version on one forward's own sample points (<= 1e-4 * max|dW|: they
-   cluster, and a row sums tens of thousands of terms in two orders), and
+   cluster, and a row sums tens of thousands of terms in two orders; the
+   kernel's run sums and block-wise partial sums change the order of a
+   float32 sum that atomics already reorder), and
    compares one step's hash-table gradients on the card and on the CPU.
 7. The other configurations, each unchanged at full width through
    ``Trainer.iterate`` at 8,192 rays per step, with finite losses and the
@@ -128,47 +134,6 @@ BLOCK = 16  # steps per timed block: one occupancy refresh inside each
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def median_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median of per-call CUDA event times, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def graph_ms(fn, per_graph: int = 20, reps: int = 20) -> float:
-    """Device time of one ``fn()``: ``per_graph`` calls captured in one CUDA
-    graph, replayed ``reps`` times between CUDA events; the median replay
-    over ``per_graph``. Replay leaves out the host's per-call launch work,
-    which ``median_ms`` includes."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_graph)
-    return statistics.median(times)
 
 
 def k1_bound(m: int, cfg, mode: str = "q8") -> tuple[float, str]:
@@ -286,6 +251,8 @@ def check_k2(x: torch.Tensor, g: torch.Tensor, cfg, tol: float, what: str) -> di
     with the host launch; plain)."""
     from atmonr_tpu_torch.models.hash_grid import level_indices
     from atmonr_tpu_torch.ops import hash_bwd as hbo
+    from atmonr_tpu_torch.ops.kernel_plan import level_plan
+    from atmonr_tpu_torch.utils.timing import graph_ms, median_ms
 
     d = cfg.n_dims
     before = hbo.hash_bwd.launches[d]
@@ -314,7 +281,8 @@ def check_k2(x: torch.Tensor, g: torch.Tensor, cfg, tol: float, what: str) -> di
         f"{float((got - ref).abs().max()) / scale:.2g}, plain "
         f"{float((want - ref).abs().max()) / scale:.2g}), device {ms:.4f} ms, per call with "
         f"launch {call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {atomics / 1e6:.1f} M float2 atomics), library ms null: {K2_NO_LIBRARY}")
+        f"({bound_by}; {atomics / 1e6:.1f} M corner adds), library ms null: {K2_NO_LIBRARY}; "
+        + level_plan(cfg, x.shape[0], hbo.ACC_BYTES, True).describe())
     return {"max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -325,6 +293,8 @@ def check_k1(mode: str, label: str, cfg, table, x, noise=None, reps: int = 50) -
     stochastic-rounding ``noise``); returns the error and the times (device
     ms by graph replay; per call with the host launch; plain)."""
     from atmonr_tpu_torch.ops import hash_gather as hgo
+    from atmonr_tpu_torch.ops.kernel_plan import level_plan
+    from atmonr_tpu_torch.utils.timing import graph_ms, median_ms
 
     d, m = cfg.n_dims, x.shape[0]
     err = 0.0
@@ -349,7 +319,8 @@ def check_k1(mode: str, label: str, cfg, table, x, noise=None, reps: int = 50) -
     log(f"[kernel] K1 {mode} {label} D={d} M={m} T={cfg.total_params}: max abs err {err:.3g} "
         f"(tolerance {K1_TOL:g} * max|out|), device {ms:.4f} ms, per call with launch "
         f"{call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"library ms null: {K1_NO_LIBRARY}")
+        f"library ms null: {K1_NO_LIBRARY}; "
+        + level_plan(cfg, m, hgo.ROW_BYTES[mode], False).describe())
     return {"max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -386,6 +357,12 @@ def phase_kernels(encodings: dict, big_encoding: dict) -> list[dict]:
             "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"], "library_ms": None,
         })
+        if n_dims == 3:
+            # every point in one cell of the finest level: all adds of a level
+            # contend for its 2^D rows, the worst a staged level can see
+            cell = 1.0 / cfg.level_scales[-1]
+            x_cell = 0.37 + 0.9 * cell * torch.rand((m, n_dims), generator=gen, device=dev)
+            check_k2(x_cell, g, cfg, 1e-4, f"{label}, all points in one cell of the finest level,")
         del table, noise, x, g
 
     # bf16 over a table that leaves the L2 cache: every gather is a sector
@@ -641,6 +618,7 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
         reset_counts()
         losses, block_s = [], []
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for it in trainer.iterate(Path(root) / "output"):
             losses.append(trainer.last_loss)
@@ -651,6 +629,7 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
                 t0 = now
         counts = read_counts()
         # ---- end of the main path ----
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
         n_ckpt = len(list((Path(root) / "output").glob("epoch_*.pt")))
 
     loss = torch.stack(losses).cpu()
@@ -665,7 +644,8 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
     first, last = float(loss[:BLOCK].mean()), float(loss[end - BLOCK:end].mean())
     log(f"[train] loss: first {BLOCK} steps {first:.4f}, steps {end - BLOCK + 1}-{end} "
         f"{last:.4f}; re-initialised at the restart check: {restarted}; "
-        f"{trainer.epoch_idx} epochs, {n_ckpt} checkpoints")
+        f"{trainer.epoch_idx} epochs, {n_ckpt} checkpoints; peak device memory "
+        f"{peak_mib:.0f} MiB")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
     want = step_counts("q8", TRAIN_STEPS, k1_d3_extra=TRAIN_STEPS // every)

@@ -14,6 +14,7 @@ from atmonr_tpu_torch import Trainer, get_dataset, get_pipeline
 from atmonr_tpu_torch.models import hash_grid as hg
 from atmonr_tpu_torch.ops import hash_bwd as hbo
 from atmonr_tpu_torch.ops import hash_gather as hgo
+from atmonr_tpu_torch.ops import kernel_plan as kp
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +157,89 @@ def test_bwd_kernel_matches_plain(dev, n_dims, lo, hi):
     want = hbo.hash_bwd_plain(x, g, cfg)
     assert got.shape == (cfg.total_params, 2) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _plan_case(log2, m, row_bytes, scatter, points, seed, dev):
+    """A 16-level 3-D grid of 2^log2 entries and ``m`` points for the level
+    plan's ways. ``m`` is 1, 257 (too few points to stage a level; K2 in
+    runs of 1), 40,000 (K2 directly in runs of 2), or ``"chunk"``: the
+    fewest points from 98,305 up with levels in shared
+    memory and one point more than a whole number of the plan's chunks, so
+    that the last staged block of each level has one point (150,001 where the
+    plan stages nothing at any size). Points: in [0, 1), outside it too, or
+    all in one cell of the finest level."""
+    cfg = hg.HashGridConfig.from_options(dict(OPTIONS, log2_hashmap_size=log2), 3)
+    if m == "chunk":
+        def last_block_has_one_point(n):
+            plan = kp.level_plan(cfg, n, row_bytes, scatter)
+            return plan.staged and plan.n_chunks >= 2 and (n - 1) % plan.chunk_points == 0
+
+        m = next((n for n in range(98_305, 1_200_000, 4096) if last_block_has_one_point(n)),
+                 150_001)
+    rng = np.random.default_rng(seed)
+    if points == "cell":
+        x = 0.37 + 0.9 / cfg.level_scales[-1] * rng.uniform(size=(m, 3))
+    else:
+        x = rng.uniform(*((0.0, 1.0) if points == "in" else (-0.5, 1.5)), (m, 3))
+    return cfg, torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+# the grids of the next two tests: 2^13 (staged in every table type but
+# f32), 2^14 (the 2-byte tables staged), 2^15, 2^17 and the 2^21 config's
+# grid (direct)
+PLAN_GRIDS = [13, 14, 15, 17, 21]
+
+
+@pytest.mark.parametrize("points", ["in", "out", "cell"])
+@pytest.mark.parametrize("m", [1, 257, 40_000, "chunk"])
+@pytest.mark.parametrize("log2", PLAN_GRIDS)
+def test_bwd_kernel_matches_plain_every_way(dev, log2, m, points):
+    """K2 where the plan stages the levels and where it takes them directly,
+    in runs of 1 to 8 points: 1e-5 of max|dW| on spread points, 1e-4
+    with every point in one cell (a row sums a hundred thousand terms, run by
+    run, block by block and then atomically, in an order that is not the
+    plain version's)."""
+    cfg, x = _plan_case(log2, m, hbo.ACC_BYTES, True, points, 50 + log2, dev)
+    g = torch.from_numpy(
+        np.random.default_rng(51).normal(size=(x.shape[0], 32)).astype(np.float32)).to(dev)
+    got = hbo.hash_bwd(x, g, cfg)
+    torch.cuda.synchronize()
+    want = hbo.hash_bwd_plain(x, g, cfg)
+    tol = 1e-4 if points == "cell" else 1e-5
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("points", ["in", "out", "cell"])
+@pytest.mark.parametrize("m", [1, 257, "chunk"])
+@pytest.mark.parametrize("mode", hg.KERNEL_MODES)
+@pytest.mark.parametrize("log2", PLAN_GRIDS)
+def test_kernel_equals_plain_every_way(dev, log2, mode, m, points):
+    """K1 in each table type where the plan stages the groups of levels and
+    where it takes the levels directly: equal to the plain version bit for
+    bit."""
+    cfg, x = _plan_case(log2, m, hgo.ROW_BYTES[mode], False, points, 60 + log2, dev)
+    table = torch.from_numpy(np.random.default_rng(61).uniform(
+        -1e-4, 1e-4, (cfg.total_params, 2)).astype(np.float32)).to(dev)
+    prepared, scales = hgo.prepare_table(table, cfg, mode)
+    got = hgo.hash_gather(prepared, scales, x, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hgo.hash_gather_plain(prepared, scales, x, cfg))
+
+
+def test_plan_grids_take_levels_every_way(dev):
+    """The grids of the two tests above do put the levels in each of the two
+    ways, in every table type."""
+    def ways(log2, row_bytes, scatter, m="chunk"):
+        cfg, x = _plan_case(log2, m, row_bytes, scatter, "in", 0, dev)
+        return set(kp.level_plan(cfg, x.shape[0], row_bytes, scatter).ways)
+
+    assert ways(13, 8, True) == {"staged"} == ways(13, 4, False) == ways(13, 2, False)
+    assert ways(14, 2, False) == {"staged"}
+    assert ways(13, 8, False) == {"direct"} == ways(14, 4, False) == ways(14, 8, True)
+    for log2 in (15, 17, 21):
+        assert ways(log2, 8, True) == {"direct"} == ways(log2, 2, False)
+    assert ways(13, 8, True, 257) == {"direct"} == ways(13, 2, False, 1)
 
 
 @pytest.mark.parametrize("mode", hg.KERNEL_MODES)
