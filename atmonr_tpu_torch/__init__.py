@@ -2,14 +2,18 @@
 
 The Instant-NGP pipeline with its three samplers (occupancy grid,
 importance, uniform): training (``Trainer``, ``python -m
-atmonr_tpu_torch.scripts.train``), ray rendering, the occupancy refresh and
-the extinction query. The hash-encode forward over bf16, f32, int8 and
-float8 tables and the hash-table gradient are CUDA kernels for sm_90a
+atmonr_tpu_torch.scripts.train``), ray rendering, the occupancy refresh,
+the extinction query over the four extraction grids with their netCDF /
+OpenVDB writers (``python -m atmonr_tpu_torch.scripts.extract``) and the
+orbit video (``python -m atmonr_tpu_torch.scripts.make_video``). The
+hash-encode forward over bf16, f32, int8 and float8 tables and the
+hash-table gradient are CUDA kernels for sm_90a
 (``csrc/``, built at first use). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``:
 
     from atmonr_tpu_torch import (
-        Trainer, get_dataset, get_pipeline, load_config, run_extraction,
+        Trainer, get_dataset, get_extract_dataset, get_pipeline, load_config,
+        run_extraction,
     )
 
 This package imports ``torch`` and ``numpy``, and nothing of JAX or of
@@ -17,9 +21,16 @@ This package imports ``torch`` and ``numpy``, and nothing of JAX or of
 """
 
 from atmonr_tpu_torch.data.factory import get_dataset
-from atmonr_tpu_torch.extract.runner import run_extraction
+from atmonr_tpu_torch.extract import get_extract_dataset, run_extraction
 from atmonr_tpu_torch.pipelines.factory import get_pipeline
 from atmonr_tpu_torch.training import Trainer
 from atmonr_tpu_torch.utils.config import load_config
 
-__all__ = ["Trainer", "get_dataset", "get_pipeline", "load_config", "run_extraction"]
+__all__ = [
+    "Trainer",
+    "get_dataset",
+    "get_extract_dataset",
+    "get_pipeline",
+    "load_config",
+    "run_extraction",
+]

@@ -14,11 +14,15 @@ def run_extraction(
     pipeline,
     points,
     batch_size: int = 32768,
+    verbose: bool = False,
 ) -> np.ndarray:
     """Query ``pipeline.extract`` over ECEF points.
 
     ``points`` is an (N, 3) float64 array of ECEF coordinates in meters, or
-    an object holding one as ``.xyz`` (an extraction grid). Returns sigma
+    an object holding one as ``.xyz`` (an extraction grid). The points are
+    normalized in float64 and cast to float32, as the JAX package does, and
+    run in batches of ``batch_size`` and one shorter tail. ``verbose``
+    prints the batch count as it goes. Returns sigma
     (N, num_density_outputs) in m^-1 as a float32 numpy array.
     """
     scale = pipeline.scale
@@ -29,8 +33,11 @@ def run_extraction(
     pts_all = torch.from_numpy(((xyz - offset[None]) / scale).astype(np.float32))
     pts_all = pts_all.to(pipeline.device)
 
-    out = [
-        pipeline.extract(pts_all[i * batch_size : (i + 1) * batch_size]) / scale
-        for i in range(nb)
-    ]
+    out = []
+    for i in range(nb):
+        out.append(pipeline.extract(pts_all[i * batch_size : (i + 1) * batch_size]) / scale)
+        if verbose:
+            print(f"extract batch {i + 1}/{nb}", end="\r")
+    if verbose:
+        print()
     return torch.cat(out, dim=0).cpu().numpy()

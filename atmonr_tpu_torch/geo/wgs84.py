@@ -1,14 +1,15 @@
 """WGS-84 geospatial math for multi-angle satellite ray construction.
 
-The part of the JAX package's ``geo/wgs84.py`` that the inference slice
-needs, with the same reference frames:
+A numpy copy of the JAX package's ``geo/wgs84.py``, with the same
+reference frames:
 
 1. WGS-84 ellipsoid, horizontal coordinates (lat/lon/alt), EPSG:4326.
 2. WGS-84 ellipsoid, Cartesian coordinates (ECEF), EPSG:4978.
 3. Normalized Cartesian scene coordinates: +X=East, +Y=North, +Z=up at the
    scene-center pixel, max-min normalized to [-1, 1].
 
-Rays are built once on the host in float64 numpy (meter accuracy).
+Rays and extraction grids are built once on the host in float64 numpy
+(meter accuracy; the Vincenty solves are genuine ``while`` loops).
 ``cartesian_to_horizontal`` is written against an array namespace ``xp`` so
 the same formula also runs on device tensors (``xp=torch``) in float32 for
 the per-step point preprocessor.
@@ -26,6 +27,7 @@ WGS_84_A = 6378137.0  # semimajor axis [m]
 WGS_84_B = 6356752.314245  # semiminor axis [m]
 WGS_84_E = (WGS_84_A**2 - WGS_84_B**2) / (WGS_84_A**2)  # first eccentricity squared
 WGS_84_E2 = (WGS_84_A**2 - WGS_84_B**2) / (WGS_84_B**2)  # second eccentricity squared
+WGS_84_F = (WGS_84_A - WGS_84_B) / WGS_84_A  # flattening
 
 
 def horizontal_to_cartesian(lat, lon, alt):
@@ -83,6 +85,19 @@ def horizontal_coords_to_dirvecs(theta, phi):
     shp = theta.shape
     rot = horizontal_coords_to_rot_mtx(np.reshape(theta, (-1,)), np.reshape(phi, (-1,)))
     return np.reshape(rot[..., :, 2], tuple(shp) + (3,))
+
+
+def dirvecs_to_horizontal_coords(dirs):
+    """Direction vectors -> (zenith [0, 360), azimuth [-180, 180)) in
+    degrees. As in the reference, the horizontal norm is ONE scalar over
+    the first two components of every vector (a flattened norm)."""
+    dirs = np.reshape(dirs, (-1, 3))
+    horiz_norm = np.sqrt(np.sum(dirs[..., :2] ** 2))
+    theta = np.arctan2(horiz_norm, dirs[..., 2])
+    phi = -np.arctan2(dirs[..., 0], -dirs[..., 1])
+    theta = (theta * (180.0 / math.pi)) % 360.0
+    phi = (phi * (180.0 / math.pi)) % 360.0 - 180.0
+    return theta, phi
 
 
 def compose_dirs_and_surface_normals(dirs, lat, lon):
@@ -175,3 +190,177 @@ def normalize_rays(ray_origin, ray_dir, ray_len):
     offset = (xyz_max + xyz_min) / 2.0
     origin_norm = np.clip((ray_origin - offset) / scale, -1.0, 1.0).astype(np.float32)
     return origin_norm, scale, offset
+
+
+def vincenty_distance(latlon1, latlon2, tol: float = 1e-12, max_iters: int = 10):
+    """Geodesic distance on the WGS-84 ellipsoid (Vincenty's inverse
+    problem).
+
+    ``latlon1`` / ``latlon2`` are (lat, lon) tuples or (2, ...) arrays in
+    degrees. Returns (distance [m], forward azimuth at the start [deg],
+    forward azimuth at the destination [deg]). Iterates until no lambda
+    moves by more than ``tol``; raises ``Warning`` after ``max_iters``
+    iterations that did not converge, as the reference does.
+    """
+    lat1, lat2 = latlon1[0] * (math.pi / 180.0), latlon2[0] * (math.pi / 180.0)
+    lon1, lon2 = latlon1[1] * (math.pi / 180.0), latlon2[1] * (math.pi / 180.0)
+    u1 = np.arctan((1.0 - WGS_84_F) * np.tan(lat1))
+    u2 = np.arctan((1.0 - WGS_84_F) * np.tan(lat2))
+    big_l = lon2 - lon1
+
+    sin_u1, cos_u1 = np.sin(u1), np.cos(u1)
+    sin_u2, cos_u2 = np.sin(u2), np.cos(u2)
+
+    def _iterate(lambd):
+        sin_l, cos_l = np.sin(lambd), np.cos(lambd)
+        sin_sigma = np.sqrt(
+            (cos_u2 * sin_l) ** 2 + (cos_u1 * sin_u2 - sin_u1 * cos_u2 * cos_l) ** 2
+        )
+        cos_sigma = sin_u1 * sin_u2 + cos_u1 * cos_u2 * cos_l
+        sigma = np.arctan2(sin_sigma, cos_sigma)
+        sin_alpha = cos_u1 * cos_u2 * sin_l / sin_sigma
+        cos2_alpha = 1.0 - sin_alpha**2
+        cos_2sigmam = cos_sigma - (2.0 * sin_u1 * sin_u2) / cos2_alpha
+        c = (WGS_84_F / 16.0) * cos2_alpha * (4.0 + WGS_84_F * (4.0 - 3.0 * cos2_alpha))
+        lambd_new = big_l + (1.0 - c) * WGS_84_F * sin_alpha * (
+            sigma
+            + c
+            * sin_sigma
+            * (cos_2sigmam + c * cos_sigma * (-1.0 + 2.0 * cos_2sigmam**2))
+        )
+        return lambd_new, (sin_sigma, cos_sigma, sigma, cos2_alpha, cos_2sigmam)
+
+    lambd = big_l
+    num_iters = 0
+    while True:
+        lambd_new, state = _iterate(lambd)
+        diff = np.abs(lambd_new - lambd)
+        lambd = lambd_new
+        num_iters += 1
+        if not np.any(diff > tol):
+            break
+        if num_iters > max_iters:
+            raise Warning(
+                f"Exceeded {max_iters} iterations without lambda changing by "
+                f"less than {tol:.1e}"
+            )
+    sin_sigma, cos_sigma, sigma, cos2_alpha, cos_2sigmam = state
+
+    u_sq = cos2_alpha * (WGS_84_A**2 - WGS_84_B**2) / WGS_84_B**2
+    big_a = 1.0 + (u_sq / 16384.0) * (
+        4096.0 + u_sq * (-768.0 + u_sq * (320.0 - 175.0 * u_sq))
+    )
+    big_b = (u_sq / 1024.0) * (256.0 + u_sq * (-128.0 + u_sq * (74.0 - 47.0 * u_sq)))
+    delta_sigma = (
+        big_b
+        * sin_sigma
+        * (
+            cos_2sigmam
+            + 0.25
+            * big_b
+            * (
+                cos_sigma * (-1.0 + 2.0 * cos_2sigmam**2)
+                - (big_b / 6.0)
+                * cos_2sigmam
+                * (-3.0 + 4.0 * sin_sigma**2)
+                * (-3.0 + 4.0 * cos_2sigmam**2)
+            )
+        )
+    )
+    s = WGS_84_B * big_a * (sigma - delta_sigma)
+    sin_l, cos_l = np.sin(lambd), np.cos(lambd)
+    alpha1 = np.arctan2(cos_u2 * sin_l, cos_u1 * sin_u2 - sin_u1 * cos_u2 * cos_l)
+    alpha2 = np.arctan2(cos_u1 * sin_l, -sin_u1 * cos_u2 + cos_u1 * sin_u2 * cos_l)
+    return s, alpha1 * (180.0 / math.pi), alpha2 * (180.0 / math.pi)
+
+
+def vincenty_point_along_geodesic(
+    latlon1, alpha1, s, tol: float = 1e-6, max_iters: int = 10
+):
+    """Destination along a geodesic (Vincenty's direct problem).
+
+    Start (lat, lon) in degrees as a tuple or a (2, ...) array, forward
+    azimuth in degrees, distance in meters. Returns ((lat2, lon2) in the
+    container kind of ``latlon1``, the azimuth at the destination in
+    radians, as the reference returns it). Iterates until no sigma moves
+    by more than ``tol``; raises ``Warning`` after ``max_iters``.
+    """
+    is_tuple = isinstance(latlon1, tuple)
+    lat1 = latlon1[0] * (math.pi / 180.0)
+    lon1 = latlon1[1] * (math.pi / 180.0)
+    alpha1 = alpha1 * (math.pi / 180.0)
+
+    u1 = np.arctan((1.0 - WGS_84_F) * np.tan(lat1))
+    sin_u1, cos_u1 = np.sin(u1), np.cos(u1)
+    cos_a1 = np.cos(alpha1)
+    sigma1 = np.arctan2(np.tan(u1), cos_a1)
+    sin_alpha = cos_u1 * np.sin(alpha1)
+    u_sq = (1.0 - sin_alpha**2) * (WGS_84_A**2 - WGS_84_B**2) / WGS_84_B**2
+    big_a = 1.0 + (u_sq / 16384.0) * (
+        4096.0 + u_sq * (-768.0 + u_sq * (320.0 - 175.0 * u_sq))
+    )
+    big_b = (u_sq / 1024.0) * (256.0 + u_sq * (-128.0 + u_sq * (74.0 - 47.0 * u_sq)))
+
+    sigma = s / (WGS_84_B * big_a)
+
+    def _iterate(sigma):
+        cos_2sigmam = np.cos(2.0 * sigma1 + sigma)
+        delta_sigma = (
+            big_b
+            * np.sin(sigma)
+            * (
+                cos_2sigmam
+                + 0.25
+                * big_b
+                * (
+                    np.cos(sigma) * (-1.0 + 2.0 * cos_2sigmam**2)
+                    - (big_b / 6.0)
+                    * cos_2sigmam
+                    * (-3.0 + 4.0 * np.sin(sigma) ** 2)
+                    * (-3.0 + 4.0 * cos_2sigmam**2)
+                )
+            )
+        )
+        return s / (WGS_84_B * big_a) + delta_sigma, cos_2sigmam
+
+    num_iters = 0
+    while True:
+        sigma_new, cos_2sigmam = _iterate(sigma)
+        diff = np.abs(sigma_new - sigma)
+        sigma = sigma_new
+        num_iters += 1
+        if not np.any(diff > tol):
+            break
+        if num_iters > max_iters:
+            raise Warning(
+                f"Exceeded {max_iters} iterations without sigma changing by "
+                f"less than {tol:.1e}"
+            )
+
+    sin_sigma, cos_sigma = np.sin(sigma), np.cos(sigma)
+    lat2 = np.arctan2(
+        sin_u1 * cos_sigma + cos_u1 * sin_sigma * cos_a1,
+        (1.0 - WGS_84_F)
+        * np.sqrt(
+            sin_alpha**2 + (sin_u1 * sin_sigma - cos_u1 * cos_sigma * cos_a1) ** 2
+        ),
+    )
+    lambd = np.arctan2(
+        sin_sigma * np.sin(alpha1), cos_u1 * cos_sigma - sin_u1 * sin_sigma * cos_a1
+    )
+    c = (
+        (WGS_84_F / 16.0)
+        * (1.0 - sin_alpha**2)
+        * (4.0 + WGS_84_F * (4.0 - 3.0 * (1.0 - sin_alpha**2)))
+    )
+    big_l = lambd - (1.0 - c) * WGS_84_F * sin_alpha * (
+        sigma
+        + c * sin_sigma * (cos_2sigmam + c * cos_sigma * (-1.0 + 2.0 * cos_2sigmam**2))
+    )
+    lon2 = big_l + lon1
+    alpha2 = np.arctan2(sin_alpha, -sin_u1 * sin_sigma + cos_u1 * cos_sigma * cos_a1)
+    lat2 = lat2 * (180.0 / math.pi)
+    lon2 = lon2 * (180.0 / math.pi)
+    if is_tuple:
+        return (lat2, lon2), alpha2
+    return np.stack([lat2, lon2]), alpha2

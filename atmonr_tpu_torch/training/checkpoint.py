@@ -54,3 +54,14 @@ def restore_checkpoint(
         output_path / f"epoch_{epoch:04d}.pt", map_location="cpu", weights_only=True
     )
     return state, epoch
+
+
+def restore_params(output_path: str | Path, pipeline, epoch: int | None = None) -> int:
+    """Load the given (or latest) checkpoint's pipeline state (parameters
+    and, where there is one, the occupancy grid) into ``pipeline``, on its
+    device: extraction and rendering need no optimizer state. Reads the
+    port's own checkpoints, not the JAX package's Orbax directories.
+    Returns the epoch."""
+    state, epoch = restore_checkpoint(output_path, epoch)
+    pipeline.load_state_dict(state["pipeline"])
+    return epoch

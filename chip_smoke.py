@@ -47,6 +47,30 @@ Phases, each of which raises on failure:
    kernel's run sums and block-wise partial sums change the order of a
    float32 sum that atomics already reorder), and
    compares one step's hash-table gradients on the card and on the CPU.
+   Extract: the trained flagship saved as the train CLI leaves an
+   experiment (``args.json``, ``config.json``, a checkpoint) and restored
+   from it (``restore_params``), then three grids of the same granule,
+   queried in the extract CLI's 32,768-point batches: ``l1c`` (the
+   pseudo-L1C of the synthetic granule at a 25 m ladder, 128 x 64 x 801 =
+   6,561,792 points) and ``voxelgrid`` (the CLI's 3 km / 250 m; no DEM, so
+   zero heights with a warning) through ``get_extract_dataset`` and
+   ``run_extraction``, ``globalgrid`` through the whole extract CLI
+   (``main``) at its defaults, which writes the ``.npy`` pair (no OpenVDB
+   here). Each ``[extract <grid>]`` line gives the points, the host seconds
+   of the grid build, points/s over the whole ``run_extraction`` (both
+   copies included), K1's launches against ceil(N / 32,768) (a count that
+   differs raises) and peak device memory; each ``[compare] extract
+   <grid>`` line 65,536 of its points (seed 0) on the card and on the CPU,
+   float32 MLPs and one preprocessor, at most 1% of rows outside rtol
+   1e-4 + 1e-6 of max|sigma|, and the main run's bfloat16 sigma against the
+   CPU's with its own preprocessor (printed, no limit). K1 q8 is also held
+   to its plain version at the first l1c batch's own points. ``[orbit]``:
+   60 frames of the l1c volume, laid out as ``make_video`` reads the
+   extract, at 640x480 with 192 samples a ray, in ms a frame; one frame
+   against the CPU's, max |brightness difference| <= 1e-4. The netCDF
+   writers and the L1C, DEM and EarthCARE readers need h5py, which the
+   card's machine lacks: the phase says so on a line of its own and does
+   not call them.
 7. The other configurations, each unchanged at full width through
    ``Trainer.iterate`` at 8,192 rays per step, with finite losses and the
    launch counts its sampler implies (a count that differs raises):
@@ -73,8 +97,9 @@ Phases, each of which raises on failure:
    surface grid on the batch's surface points (K1 <= 1e-6 * max|out|, K2
    <= 1e-4 * max|dW|).
 
-Each main path (phases 4-5, phase 6, and each configuration of phase 7) has
-every launch count set to 0 just before it and read just after it. The
+Each main path (phases 4-5, phase 6's training and each of its three
+grids, and each configuration of phase 7) has every launch count set to 0
+just before it and read just after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is the result, ``{"ok": true, "device": ...}``.
 """
@@ -130,6 +155,17 @@ TRAIN_STEPS = 192
 SAME_SAMPLES_RTOL, SAME_SAMPLES_MISS = 1e-4, 0.02
 GRAD_RTOL, GRAD_ATOL, GRAD_BAD_ROWS, GRAD_REL_L2 = 1e-3, 1e-4, 0.01, 3e-3
 BLOCK = 16  # steps per timed block: one occupancy refresh inside each
+# The extract phase: the grids at the extract CLI's defaults (l1c at a 25 m
+# ladder, 801 levels), queried in the CLI's 32,768-point batches. Card
+# against CPU on 65,536 points of each grid fixed by seed 0, float32 MLPs
+# and the card's preprocessor on both (as for the trained model above):
+# rows outside rtol 1e-4 + 1e-6 of max|sigma| at most 1%. Orbit frames at
+# the renderer's defaults; one frame held to the CPU's to 1e-4.
+EXTRACT_BATCH = 32768
+EXTRACT_COMPARE = 65536
+SIGMA_RTOL, SIGMA_ATOL, SIGMA_BAD = 1e-4, 1e-6, 0.01
+ORBIT_FRAMES, ORBIT_CHECK_FRAME, FRAME_TOL = 60, 7, 1e-4
+ORBIT_RES = (640, 480, 192)  # width, height, samples a ray
 
 
 def log(msg: str) -> None:
@@ -738,7 +774,229 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
             failed.append(name)
     if failed:
         raise RuntimeError(f"card and CPU gradients disagree: {failed}")
+    ctx.update(trainer=trainer, train_config=dict(config, trainer=tcfg))
     return counts
+
+
+def save_experiment(ctx: dict, root: str) -> Path:
+    """The trained flagship as ``python -m atmonr_tpu_torch.scripts.train``
+    leaves an experiment: ``args.json`` and ``config.json`` (written by its
+    ``setup_dir``) and the trainer's checkpoint, under
+    ``<root>/output/chip_smoke``."""
+    from atmonr_tpu_torch.scripts import train as train_cli
+
+    args = train_cli.parse_args([
+        "--exp-name", "chip_smoke", "--config-path", str(CONFIG), "--scene-filename", SCENE,
+        "--data-root", root, "--num-iters", str(TRAIN_STEPS)])
+    out = train_cli.setup_dir(args, ctx["train_config"])
+    ctx["trainer"].save(out, ctx["trainer"].epoch_idx)
+    return out
+
+
+def compare_sigma(tag: str, xyz: np.ndarray, sigma: np.ndarray, pipe, cpu) -> None:
+    """``EXTRACT_COMPARE`` points of a grid (seed 0) queried on the card and
+    on the CPU with float32 MLPs and the card's preprocessor on both; raises
+    if more than ``SIGMA_BAD`` of them differ by more than ``SIGMA_RTOL`` plus
+    ``SIGMA_ATOL`` of max|sigma|. Also prints, without a limit, the same
+    share with each device's own float32 preprocessor, and for the main
+    run's own sigma (bfloat16 MLP products) against the CPU's."""
+    from atmonr_tpu_torch import run_extraction
+
+    idx = np.sort(np.random.default_rng(0).choice(xyz.shape[0], EXTRACT_COMPARE, replace=False))
+    pts = xyz[idx]
+    own_pre = cpu.point_preprocessor
+    shared = lambda p: pipe.point_preprocessor(p.to(pipe.device)).cpu()  # noqa: E731
+    results = {}
+    try:
+        for label, dtype, pre in (("bfloat16 MLPs (the main run), own preprocessors",
+                                   torch.bfloat16, own_pre),
+                                  ("float32 MLPs, own preprocessors", torch.float32, own_pre),
+                                  ("float32 MLPs, one preprocessor", torch.float32, shared)):
+            pipe.compute_dtype = cpu.compute_dtype = dtype
+            cpu.point_preprocessor = pre
+            card = sigma[idx] if dtype == torch.bfloat16 else run_extraction(
+                pipe, pts, batch_size=EXTRACT_BATCH)
+            host = run_extraction(cpu, pts, batch_size=EXTRACT_BATCH)
+            bad = (np.abs(card - host) > SIGMA_RTOL * np.abs(host)
+                   + SIGMA_ATOL * np.abs(host).max()).any(axis=1)
+            results[label] = (bad.mean(), float(np.abs(card - host).max()),
+                              float(np.abs(host).max()), bool(np.isfinite(card).all()))
+    finally:
+        pipe.compute_dtype = cpu.compute_dtype = torch.bfloat16
+        cpu.point_preprocessor = own_pre
+    log(f"[compare] {tag}: card vs CPU at {EXTRACT_COMPARE} points, rows outside rtol "
+        f"{SIGMA_RTOL:g} + {SIGMA_ATOL:g} of max|sigma| (max abs err, max|sigma|): "
+        + "; ".join(f"{k} {v[0]:.4%} ({v[1]:.3g}, {v[2]:.3g})" for k, v in results.items())
+        + f"; the limit {SIGMA_BAD:.0%} is on the last")
+    share, _, _, finite = results["float32 MLPs, one preprocessor"]
+    if not (finite and share <= SIGMA_BAD):
+        raise RuntimeError(f"{tag}: card and CPU sigma disagree on more than {SIGMA_BAD:.0%}")
+
+
+def check_extract(tag: str, grid, sigma: np.ndarray, counts: dict, build_s: float,
+                  query_s: float, peak_mib: float, card: str) -> None:
+    """A grid's result: finite, non-negative, one value per point, and K1 q8
+    D=3 launched once per 32,768-point batch and nothing else."""
+    n = len(grid)
+    batches = -(-n // EXTRACT_BATCH)
+    if sigma.shape != (n, 1) or not np.all(np.isfinite(sigma)) or np.any(sigma < 0):
+        raise RuntimeError(f"{tag}: sigma not finite, non-negative, (N, 1)")
+    if launched(counts) != {("K1", "q8", 3): batches}:
+        raise RuntimeError(f"{tag}: launches {show(counts)}, expected K1 q8 D=3 x{batches}")
+    log(f"[{tag}] {n} points, shape {grid.shp}: grid built on the host in {build_s:.2f} s; "
+        f"run_extraction (both copies included) {query_s:.3f} s = {n / query_s:.0f} points/s; "
+        f"K1 launches {show(counts)} for ceil({n}/{EXTRACT_BATCH}) = {batches} batches; peak "
+        f"device memory {peak_mib:.0f} MiB; sigma max {float(sigma.max()):.3g} m^-1; on {card}")
+
+
+def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
+    """The extraction entry points on the trained flagship, saved as the
+    train CLI leaves an experiment and restored from it: the l1c grid at a
+    25 m ladder and the voxelgrid at the CLI's defaults through
+    ``get_extract_dataset`` and ``run_extraction``, the globalgrid through
+    the whole extract CLI (``main``) at its defaults, each with its launch
+    counts set to 0 just before and read just after; then 60 orbit frames of
+    the l1c volume. Returns the counts by path."""
+    import warnings
+
+    from atmonr_tpu_torch import get_extract_dataset, get_pipeline, run_extraction
+    from atmonr_tpu_torch.extract.orbit_render import orbit_camera, render_frame, render_orbit
+    from atmonr_tpu_torch.ops import hash_gather as hgo
+    from atmonr_tpu_torch.ops.kernel_plan import level_plan
+    from atmonr_tpu_torch.scripts import extract as extract_cli
+    from atmonr_tpu_torch.scripts.make_video import volume_for_render
+    from atmonr_tpu_torch.training.checkpoint import restore_params
+
+    log("[extract] not called on this machine, which has no h5py: the netCDF writers, the "
+        "L1C, DEM and EarthCARE readers and make_video's read_extract_sigma "
+        "(tests/test_torch_extract.py and tests/test_torch_journey.py hold them to the JAX "
+        "package on the CPU)")
+    ds, paths = ctx["ds"], {}
+    with tempfile.TemporaryDirectory() as root:
+        out = save_experiment(ctx, root)
+        config = json.loads((out / "config.json").read_text())
+        pipe = get_pipeline(config["pipeline"], ds)
+        cpu = get_pipeline(config["pipeline"], ds, device="cpu")
+        epoch = restore_params(out, pipe)
+        restore_params(out, cpu)
+        cfg = pipe.pos_cfg
+        log(f"[extract] restored epoch {epoch} of {out}; K1 q8 D=3 at a full batch of "
+            f"{EXTRACT_BATCH} points: "
+            + level_plan(cfg, EXTRACT_BATCH, hgo.ROW_BYTES["q8"], False).describe())
+
+        volume = None
+        for mode, kw in (("l1c", {"alt_step": 25.0}),
+                         ("voxelgrid", {"horizontal_step": 3000.0, "alt_step": 250.0})):
+            tag = f"extract {mode}"
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                grid = get_extract_dataset(mode, ds, **kw)
+            build_s = time.perf_counter() - t0
+            for w in caught:
+                log(f"[{tag}] warning: {w.message}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path: counts reset just before, read just after ----
+            reset_counts()
+            t0 = time.perf_counter()
+            sigma = run_extraction(pipe, grid, batch_size=EXTRACT_BATCH)
+            query_s = time.perf_counter() - t0
+            paths[tag] = read_counts()
+            # ---- end of the main path ----
+            check_extract(tag, grid, sigma, paths[tag], build_s, query_s,
+                          torch.cuda.max_memory_allocated() / 2**20, card)
+            compare_sigma(tag, grid.xyz, sigma, pipe, cpu)
+            if mode == "voxelgrid":
+                # where the time of a query goes: one more run, profiled
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    run_extraction(pipe, grid, batch_size=EXTRACT_BATCH)
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                log_profile(prof, f"{tag} run_extraction", query_s * 1e6, wall_us, card, top=8)
+            if mode == "l1c":
+                tail = len(grid) % EXTRACT_BATCH
+                log(f"[{tag}] the tail batch of {tail} points: "
+                    + level_plan(cfg, tail, hgo.ROW_BYTES["q8"], False).describe())
+                # K1 at the batches' own points: the first full batch
+                with torch.no_grad():
+                    pts = torch.from_numpy(((grid.xyz[:EXTRACT_BATCH] - ds.offset) / ds.scale)
+                                           .astype(np.float32)).to(pipe.device)
+                    x = pipe._encoder_inputs(pts[None])[0].contiguous()
+                k1 = check_k1("q8", "extract l1c batch", cfg, pipe.pos_table.detach(), x, reps=20)
+                row = next(r for r in rows if r["key"] == ("K1", "q8", 3))
+                row.setdefault("at_path_shapes", []).append({
+                    "path": tag, "grid": "pos", "m": EXTRACT_BATCH, "table_rows": cfg.total_params,
+                    "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+                    "bound_ms": k1["bound_ms"]})
+                # the volume as extract_to_netcdf lays it out and make_video
+                # orients and scales it
+                na = grid.sample_alt.shape[0]
+                volume = volume_for_render(sigma.reshape(grid.shp[0], grid.shp[1], na, 1), 0)
+                volume = volume * ds.scale / 1000
+            del grid, sigma
+
+        # globalgrid: the whole extract CLI at its defaults
+        tag = "extract globalgrid"
+        argv = ["--exp-name", "chip_smoke", "--coord-mode", "globalgrid",
+                "--extract-filename", "globalgrid.vdb", "--data-root", root]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = extract_cli.main(argv)
+        paths[tag] = read_counts()
+        # ---- end of the main path ----
+        for w in caught:
+            log(f"[{tag}] warning: {w.message}")
+        check_extract(tag, run.grid, run.sigma, paths[tag], run.build_s, run.query_s,
+                      torch.cuda.max_memory_allocated() / 2**20, card)
+        vox, sig = np.load(out / "globalgrid_voxels.npy"), np.load(out / "globalgrid_sigma.npy")
+        if vox.shape != (len(run.grid), 3) or not np.array_equal(sig, run.sigma):
+            raise RuntimeError(f"{tag}: the .npy pair does not hold the grid's voxels and sigma")
+        log(f"[{tag}] python -m atmonr_tpu_torch.scripts.extract {' '.join(argv)}: wrote "
+            f"{vox.shape[0]} voxels and their sigma as the .npy pair (no OpenVDB here)")
+        compare_sigma(tag, run.grid.xyz, run.sigma, pipe, cpu)
+        del run
+
+    # the orbit video's frames, on the card, of the l1c volume
+    w, h, n = ORBIT_RES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_s, frames = [], []
+    t0 = time.perf_counter()
+    for frame in render_orbit(volume, ORBIT_FRAMES, width=w, height=h, n_samples=n):
+        now = time.perf_counter()
+        frame_s.append(now - t0)
+        t0 = now
+        frames.append(frame)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if len(frames) != ORBIT_FRAMES or any(f.shape != (h, w) or f.dtype != np.uint8 for f in frames):
+        raise RuntimeError("orbit frames: wrong count, shape or type")
+    eye, center = orbit_camera(volume.shape, ORBIT_CHECK_FRAME, ORBIT_FRAMES)
+    got = render_frame(torch.from_numpy(volume).cuda(), torch.from_numpy(eye).cuda(),
+                       torch.from_numpy(center).cuda(), width=w, height=h, n_samples=n).cpu()
+    t0 = time.perf_counter()
+    want = render_frame(torch.from_numpy(volume), torch.from_numpy(eye), torch.from_numpy(center),
+                        width=w, height=h, n_samples=n)
+    cpu_s = time.perf_counter() - t0
+    err = float((got - want).abs().max())
+    if not float(want.max()) > 0:
+        raise RuntimeError("the orbit frame is blank")
+    log(f"[orbit] {ORBIT_FRAMES} frames of the l1c volume {volume.shape} at {w}x{h}, {n} samples "
+        f"a ray: {1e3 * sum(frame_s) / len(frame_s):.2f} ms a frame (median "
+        f"{1e3 * statistics.median(frame_s):.2f}, first {1e3 * frame_s[0]:.2f}; host clock, the "
+        f"frame's copy to the host included), peak device memory {peak_mib:.0f} MiB; uint8 "
+        f"levels up to {max(int(f.max()) for f in frames)}; frame "
+        f"{ORBIT_CHECK_FRAME} card vs CPU: max |brightness difference| {err:.3g} (tolerance "
+        f"{FRAME_TOL:g}; brightest {float(want.max()):.3g}; the CPU took {cpu_s:.1f} s); on {card}")
+    if not err <= FRAME_TOL:
+        raise RuntimeError(f"orbit frame card vs CPU: {err} > {FRAME_TOL}")
+    return paths
 
 
 def steady_step_s(trainer, n_blocks: int, block: int) -> list[float]:
@@ -1020,6 +1278,9 @@ def main() -> int:
     phase_profile(ctx, smi)
     phase_card_vs_cpu(ctx)
     paths = {"flagship inference": counts, "flagship training": phase_train(ctx, smi, rows)}
+    paths.update(phase_extract(ctx, smi, rows))
+    del ctx["trainer"]
+    torch.cuda.empty_cache()
     paths.update(phase_configs(ctx, smi, rows))
     for row in rows:
         key = row.pop("key")
