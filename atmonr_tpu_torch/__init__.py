@@ -1,7 +1,8 @@
 """AtmoNR in PyTorch and CUDA, beside the JAX package ``atmonr_tpu``.
 
 The Instant-NGP pipeline with its three samplers (occupancy grid,
-importance, uniform): training (``Trainer``, ``python -m
+importance, uniform), the pair-bucket hash and the height channel, and the
+hierarchical NeRF pipeline (``NeRFPipeline``): training (``Trainer``, ``python -m
 atmonr_tpu_torch.scripts.train``), ray rendering, the occupancy refresh,
 the extinction query over the four extraction grids with their netCDF /
 OpenVDB writers (``python -m atmonr_tpu_torch.scripts.extract``) and the
@@ -12,8 +13,8 @@ hash-table gradient are CUDA kernels for sm_90a
 caller passes ``device="cpu"``:
 
     from atmonr_tpu_torch import (
-        Trainer, get_dataset, get_extract_dataset, get_pipeline, load_config,
-        run_extraction,
+        NeRFPipeline, Trainer, get_dataset, get_extract_dataset, get_pipeline,
+        load_config, run_extraction,
     )
 
 This package imports ``torch`` and ``numpy``, and nothing of JAX or of
@@ -23,10 +24,12 @@ This package imports ``torch`` and ``numpy``, and nothing of JAX or of
 from atmonr_tpu_torch.data.factory import get_dataset
 from atmonr_tpu_torch.extract import get_extract_dataset, run_extraction
 from atmonr_tpu_torch.pipelines.factory import get_pipeline
+from atmonr_tpu_torch.pipelines.nerf import NeRFPipeline
 from atmonr_tpu_torch.training import Trainer
 from atmonr_tpu_torch.utils.config import load_config
 
 __all__ = [
+    "NeRFPipeline",
     "Trainer",
     "get_dataset",
     "get_extract_dataset",

@@ -5,7 +5,10 @@ The JAX Instant-NGP parameters are a nested dict: ``pos_table``;
 in)}, ...]}``; ``surf_enc`` as a list with one dict per surface-encoding
 spec, ``{"hash_table": ...}`` for a HashGrid spec and ``{}`` otherwise.
 Here they are named ``pos_table``, ``<mlp>.layers.<i>.weight`` (the same
-(out, in) matrix) and ``surf_enc.<spec index>``.
+(out, in) matrix) and ``surf_enc.<spec index>``. The JAX NeRF parameters
+are ``{"coarse" | "fine": {"fc<i>": {"w": (out, in), "b": (out,)}}}``;
+here ``coarse.fc<i>.weight`` and ``coarse.fc<i>.bias``. Both functions tell
+the two layouts apart by their keys.
 
 Gradients and AdamW moments have the parameters' structure on both sides:
 ``params_from_jax`` also takes a ``jax.grad`` result or an optax ``mu`` /
@@ -21,6 +24,8 @@ import numpy as np
 import torch
 
 _MLPS = ("pos_mlp", "dir_mlp", "surf_mlp")
+_NERF_MODELS = ("coarse", "fine")
+_NERF_LEAVES = (("w", "weight"), ("b", "bias"))
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -30,6 +35,13 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
+    if "coarse" in tree:
+        return {
+            f"{model}.{layer}.{name}": t(leaves[key])
+            for model in _NERF_MODELS
+            for layer, leaves in tree[model].items()
+            for key, name in _NERF_LEAVES
+        }
     out = {"pos_table": t(tree["pos_table"])}
     for name in _MLPS:
         for i, layer in enumerate(tree[name]["layers"]):
@@ -41,16 +53,24 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 def params_to_jax(
-    state: Mapping[str, torch.Tensor], n_surf_specs: int
+    state: Mapping[str, torch.Tensor], n_surf_specs: int = 0
 ) -> dict[str, Any]:
     """State dict -> the JAX nested parameters as numpy arrays.
-    ``n_surf_specs`` is the number of nested surface-encoding specs (the
-    length of the ``surf_enc`` list, parameter-free specs included)."""
+    ``n_surf_specs`` is the number of nested surface-encoding specs of an
+    Instant-NGP state (the length of the ``surf_enc`` list, parameter-free
+    specs included)."""
 
     def a(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy()
 
-    tree: dict[str, Any] = {"pos_table": a(state["pos_table"])}
+    if any(k.startswith("coarse.") for k in state):
+        tree: dict[str, Any] = {model: {} for model in _NERF_MODELS}
+        for k, v in state.items():
+            model, layer, name = k.split(".")
+            key = next(j for j, n in _NERF_LEAVES if n == name)
+            tree[model].setdefault(layer, {})[key] = a(v)
+        return tree
+    tree = {"pos_table": a(state["pos_table"])}
     for name in _MLPS:
         n_layers = sum(
             1 for k in state if k.startswith(f"{name}.layers.") and k.endswith(".weight")

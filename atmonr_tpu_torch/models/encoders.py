@@ -1,13 +1,16 @@
-"""Input encoders: spherical harmonics, identity, and composites.
+"""Input encoders: NeRF frequency encoding, spherical harmonics, identity,
+and composites.
 
 Counterpart of the JAX package's ``models/encoders.py``:
 
+- ``positional_encoding``: the NeRF sin/cos frequency encoding, with the
+  two channel orders of a scalar and of a per-axis list of frequency counts;
 - ``spherical_harmonics``: tiny-cuda-nn's real SH basis, degrees 1-4 (bands
   0-3), in tcnn's component order and input convention (inputs treated as
   [0,1]-scaled and mapped by ``x*2-1``).
 - ``init_composite`` / ``apply_composite``: config-driven slicing of the
-  input dims into nested SphericalHarmonics, Identity and HashGrid
-  encodings. The NeRF ``Frequency`` encoding is still to be ported.
+  input dims into nested SphericalHarmonics, Identity, HashGrid and
+  Frequency encodings.
 """
 
 from __future__ import annotations
@@ -18,6 +21,28 @@ from typing import Any, Sequence
 import torch
 
 from atmonr_tpu_torch.models import hash_grid as hg
+
+
+def positional_encoding(pts: torch.Tensor, L: int | Sequence[int]) -> torch.Tensor:
+    """NeRF sin/cos frequency encoding with frequencies ``2^l * pi``.
+
+    Scalar ``L``: flattens to (M, D) and returns (M, D, 2L) with each
+    frequency's [sin_l, cos_l] interleaved. List ``L`` (one count per axis,
+    e.g. [14, 14, 10] for a lower altitude frequency): keeps the leading
+    shape and returns (..., 2*sum(L)) with per-axis [sin_0..sin_{L-1},
+    cos_0..cos_{L-1}] blocks."""
+    if isinstance(L, int):
+        flat = torch.reshape(pts, (-1, pts.shape[-1]))
+        freqs = (2.0 ** torch.arange(L, dtype=flat.dtype, device=flat.device)) * torch.pi
+        x = flat[..., None] * freqs  # (M, D, L)
+        enc = torch.stack([torch.sin(x), torch.cos(x)], dim=-1)  # (M, D, L, 2)
+        return torch.reshape(enc, (enc.shape[0], enc.shape[1], -1))
+    parts = []
+    for i, num_freqs in enumerate(L):
+        freqs = (2.0 ** torch.arange(num_freqs, dtype=pts.dtype, device=pts.device)) * torch.pi
+        x = pts[..., i, None] * freqs
+        parts.append(torch.cat([torch.sin(x), torch.cos(x)], dim=-1))
+    return torch.cat(parts, dim=-1)
 
 
 def _sh_l0(x, y, z):
@@ -82,7 +107,7 @@ def spherical_harmonics(
 class EncoderSpec:
     """One nested entry of a composite encoding config (tcnn schema).
 
-    ``otype`` in {"SphericalHarmonics", "Identity", "HashGrid"};
+    ``otype`` in {"SphericalHarmonics", "Identity", "HashGrid", "Frequency"};
     ``n_dims_to_encode`` slices the input (None = all remaining dims).
     """
 
@@ -96,15 +121,6 @@ class EncoderSpec:
         otype = cfg.pop("otype")
         n_dims = cfg.pop("n_dims_to_encode", None)
         return EncoderSpec(otype=otype, n_dims_to_encode=n_dims, options=cfg)
-
-
-def _not_ported(otype: str) -> NotImplementedError:
-    if otype == "Frequency":
-        return NotImplementedError(
-            "the Frequency encoding comes with the NeRF pipeline "
-            "(ROADMAP.md queue 1, 'NeRF pipeline')"
-        )
-    return NotImplementedError(otype)
 
 
 def _spans(specs: Sequence[EncoderSpec], n_input_dims: int):
@@ -132,8 +148,10 @@ def composite_output_dim(specs: Sequence[EncoderSpec], n_input_dims: int) -> int
             total += int(spec.options["n_levels"]) * int(
                 spec.options["n_features_per_level"]
             )
+        elif spec.otype == "Frequency":
+            total += 2 * int(spec.options["n_frequencies"]) * n_dims
         else:
-            raise _not_ported(spec.otype)
+            raise NotImplementedError(spec.otype)
     return total
 
 
@@ -185,6 +203,9 @@ def apply_composite(
         elif spec.otype == "HashGrid":
             cfg = hg.HashGridConfig.from_options(spec.options, n_dims)
             outs.append(hg.hash_encode(tables[i], xs, cfg))
+        elif spec.otype == "Frequency":
+            enc = positional_encoding(xs, int(spec.options["n_frequencies"]))
+            outs.append(torch.reshape(enc, (enc.shape[0], -1)))
         else:
-            raise _not_ported(spec.otype)
+            raise NotImplementedError(spec.otype)
     return torch.cat(outs, dim=-1)

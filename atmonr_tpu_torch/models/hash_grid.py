@@ -9,7 +9,11 @@ Counterpart of the JAX package's ``models/hash_grid.py``:
   ``(x*1) xor (y*2654435761) xor (z*805459861) mod T`` (uint32 wraparound);
 - D-linear interpolation of the 2**D corner feature vectors;
 - features initialized U(-1e-4, 1e-4);
-- all levels in one flat (total_params, F) table.
+- all levels in one flat (total_params, F) table;
+- ``hashed_tile: "on"`` (the pair-bucket hash, a different model): the
+  hashed levels of a 3-D grid store overlapped (4,4,4)-entry windows at
+  stride 3, each window hashed to one 64-entry bucket, so a cell's eight
+  corners lie in one bucket (``level_indices``).
 
 Forward modes, as in the JAX package: ``"xla"`` is the exact f32
 per-corner gather, plain tensor indexing (the JAX package also computes it
@@ -20,6 +24,7 @@ kernel of ``ops/hash_gather.py`` (its plain version on CPU tensors); their
 table gradient is the CUDA kernel of ``ops/hash_bwd.py``, whatever the
 forward's precision. ``resolve_fwd_mode`` says which of them a grid config
 runs: it is the JAX package's TPU dispatch, a function of the config alone.
+Pair-bucket grids never reach a kernel: the kernels index per cell.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ KERNEL_MODES = ("bf16", "f32", "q8", "f8")
 MAX_QUANTIZED_LEVEL_ENTRIES = 1 << 16
 # every value the JAX package accepts; the port computes one gradient for all
 BWD_MODES = ("auto", "f32", "bf16", "sort")
+HASHED_TILE = ("off", "on")
+# the pair-bucket window: _TILE_W entries per dim at stride _TILE_S, so any
+# 2-entry corner run, and hence any 2^D corner cube, lies in one window
+_TILE_W, _TILE_S = 4, 3
 
 
 def _align(n: int, m: int = 8) -> int:
@@ -52,9 +61,10 @@ def _align(n: int, m: int = 8) -> int:
 class HashGridConfig:
     """Static configuration of a multiresolution hash grid.
 
-    ``fwd_mode`` is validated at construction (``FWD_MODES``).
-    ``hashed_tile: "on"`` (the pair-bucket hash, a different model) is not
-    ported and raises. ``bwd_mode`` is validated too: the port computes
+    ``fwd_mode`` is validated at construction (``FWD_MODES``), and so is
+    ``hashed_tile`` (``"on"``: the pair-bucket hash of the 3-D hashed
+    levels, a different model; it changes the collision structure and
+    keeps the table's shape). ``bwd_mode`` is validated too: the port computes
     the exact float32 table gradient for every value the JAX package
     accepts (``ops/hash_bwd.py``). The JAX package's ``dense_tile`` and
     ``bwd_sort_pack`` options select TPU layouts, and are not read here.
@@ -79,11 +89,9 @@ class HashGridConfig:
             raise ValueError(
                 f"unknown fwd_mode {self.fwd_mode!r}; known: {FWD_MODES}"
             )
-        if self.hashed_tile != "off":
-            raise NotImplementedError(
-                f"hashed_tile {self.hashed_tile!r} is not ported: the "
-                "pair-bucket hash is ROADMAP.md queue 1, 'Pair-bucket "
-                "configs'."
+        if self.hashed_tile not in HASHED_TILE:
+            raise ValueError(
+                f"unknown hashed_tile {self.hashed_tile!r}; known: {HASHED_TILE}"
             )
 
     @staticmethod
@@ -192,6 +200,17 @@ def _base_and_frac(x: torch.Tensor, cfg: HashGridConfig, level: int):
     return base, frac
 
 
+def _use_hashed_tiles(cfg: HashGridConfig, level: int) -> bool:
+    """Whether ``level`` takes the pair-bucket hash: ``hashed_tile: "on"``,
+    a 3-D grid and a hashed level. Raises where the table has fewer than 64
+    entries a level, one bucket."""
+    if cfg.hashed_tile != "on" or cfg.n_dims != 3 or cfg.level_is_dense(level):
+        return False
+    if cfg.log2_hashmap_size < 6:
+        raise ValueError("hashed_tile needs 64-entry buckets (log2_hashmap_size >= 6)")
+    return True
+
+
 def level_indices(
     x: torch.Tensor, cfg: HashGridConfig, level: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -218,6 +237,18 @@ def level_indices(
         for d in range(1, cfg.n_dims):
             stride *= res
             idx = idx + g[..., d] * stride
+    elif _use_hashed_tiles(cfg, level):
+        # every corner lies in the window t = base // 3, at in-window
+        # offset g - 3t (0..3); the window's bucket holds its 64 entries
+        # slot-major, z slowest and x fastest
+        t = base.to(torch.int64) // _TILE_S
+        win = g - (_TILE_S * t)[:, None, :]
+        row = _TILE_W**cfg.n_dims
+        bucket = _spatial_hash(t, cfg.n_dims, cfg.level_sizes[level] // row)
+        slot = torch.zeros_like(win[..., 0])
+        for d in reversed(range(cfg.n_dims)):
+            slot = slot * _TILE_W + win[..., d]
+        idx = bucket[:, None] * row + slot
     else:
         idx = _spatial_hash(g, cfg.n_dims, cfg.hashmap_size)
 
@@ -262,13 +293,19 @@ def resolve_fwd_mode(cfg: HashGridConfig) -> str:
       (2, 3), every level at most 2^16 entries); beyond it the TPU computes
       the exact f32 gather, and so does this: ``"f32"``;
     - ``"f32"`` is the kernel where it takes the grid, else the exact
-      gather, which computes the same numbers.
+      gather, which computes the same numbers;
+    - a pair-bucket grid (``hashed_tile: "on"``) never takes a kernel:
+      ``"auto"`` and ``"bf16"`` give ``"xla_bf16"``, every other mode
+      ``"xla"`` (the JAX package's ``_fwd_dispatch`` keeps these grids out
+      of Pallas).
 
     A kernel mode with more levels than the kernels take raises at the
     kernel's wrapper; no mode turns to the plain gather for that."""
     mode = "bf16" if cfg.fwd_mode == "auto" else cfg.fwd_mode
     if mode == "xla":
         return "xla"
+    if cfg.hashed_tile == "on":
+        return "xla_bf16" if mode == "bf16" else "xla"
     two_features_2d_or_3d = cfg.n_features_per_level == 2 and cfg.n_dims in (2, 3)
     if mode in ("q8", "f8"):
         if two_features_2d_or_3d and max(cfg.level_sizes) <= MAX_QUANTIZED_LEVEL_ENTRIES:

@@ -50,7 +50,10 @@ def level_args(cfg: HashGridConfig):
 
 
 def check_grid(cfg: HashGridConfig, what: str) -> None:
-    """The grids both kernels take: 2 features, D in (2, 3), <= 32 levels."""
+    """The grids both kernels take: 2 features, D in (2, 3), <= 32 levels,
+    per-cell indexing (a pair-bucket grid would be another model)."""
+    if cfg.hashed_tile != "off":
+        raise ValueError(f"{what} indexes per cell; a hashed_tile grid has no kernel")
     if cfg.n_features_per_level != 2:
         raise ValueError(f"{what} takes 2 features per level")
     if cfg.n_dims not in (2, 3) or cfg.n_levels > MAX_LEVELS:

@@ -1,12 +1,12 @@
 """Ray-march samplers: stratified bins, the inverse CDF of coarse
 compositing weights (importance sampling), and the piecewise-constant
-inverse CDF behind the occupancy grid.
+inverse CDF behind the occupancy grid; and ``append_heights``, the
+ellipsoidal height as a 4th input channel.
 
 Counterpart of the JAX package's ``ops/samplers.py``. Randomness comes in
 as explicit draw tensors (``None`` selects the deterministic midpoint
 variant used by eval and the parity tests); callers make the draws from a
-``torch.Generator``. ``append_heights`` is still to be ported, with
-``include_height`` and the NeRF pipeline.
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+
+from atmonr_tpu_torch.geo.wgs84 import cartesian_to_horizontal
 
 
 def _rank_right(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -157,3 +159,17 @@ def sample_piecewise(
     z_vals = z_unit * ray_batch["len"][:, None]
     pts = ray_batch["origin"][:, None] + ray_batch["dir"][:, None] * z_vals[..., None]
     return pts, z_vals
+
+
+def append_heights(
+    pts: torch.Tensor, ray_origin_height: float, scale: float, offset
+) -> torch.Tensor:
+    """Append the normalized ellipsoidal height as a 4th channel of (..., 3)
+    points: un-normalize to ECEF (``pts * scale + offset``), convert to
+    (lat, lon, alt) in the points' own dtype and divide the altitude by
+    ``ray_origin_height``. In float32 the altitude carries the conversion's
+    ~1-6 m error floor (``geo/wgs84.py::cartesian_to_horizontal``)."""
+    offset = torch.as_tensor(offset, dtype=pts.dtype, device=pts.device)
+    xyz = pts * scale + offset
+    _, _, alt = cartesian_to_horizontal(xyz[..., 0], xyz[..., 1], xyz[..., 2], xp=torch)
+    return torch.cat([pts, (alt / ray_origin_height)[..., None]], dim=-1)

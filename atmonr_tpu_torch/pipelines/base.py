@@ -12,6 +12,9 @@ is the deterministic path.
 
 from __future__ import annotations
 
+import warnings
+from typing import Mapping
+
 import torch
 from torch import nn
 
@@ -19,8 +22,9 @@ from atmonr_tpu_torch.utils.device import resolve_device
 
 
 class Pipeline(nn.Module):
-    """Base class; subclasses implement ``forward``, ``update_aux``,
-    ``extract``, ``compute_loss`` and ``make_optimizer``."""
+    """Base class; subclasses implement ``init_params``, ``make_draws``,
+    ``forward``, ``extract``, ``compute_loss`` and ``make_optimizer``, and
+    where they keep buffers ``init_aux`` and ``update_aux``."""
 
     def __init__(
         self, config: dict, dataset, device: str | torch.device | None = None
@@ -32,6 +36,12 @@ class Pipeline(nn.Module):
             raise ValueError(
                 "point_preprocessor 'horizontal' excludes include_height"
             )
+        L_x = config.get("encoder", {}).get("L_x")
+        if not config["point_preprocessor"] and isinstance(L_x, list) and len(set(L_x)) > 1:
+            warnings.warn(
+                "Are you sure you want to use a variable encoding dimension "
+                "for non-transformed coordinates?"
+            )
         self.config = config
         self.scale = dataset.scale
         self.offset = dataset.offset
@@ -41,6 +51,21 @@ class Pipeline(nn.Module):
             )
         else:
             self.point_preprocessor = None
+
+    def load_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Copy a parameter state dict (``convert.params_from_jax``'s
+        layout) in; every parameter must be given, and nothing else."""
+        own = dict(self.named_parameters())
+        if set(params) != set(own):
+            raise KeyError(
+                f"parameter names differ: missing {sorted(set(own) - set(params))}, "
+                f"unexpected {sorted(set(params) - set(own))}"
+            )
+        with torch.no_grad():
+            for name, value in params.items():
+                if own[name].shape != value.shape:
+                    raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
+                own[name].copy_(value)
 
     def init_aux(self) -> None:
         """Reset the non-learnable buffers (e.g. the occupancy grid)."""

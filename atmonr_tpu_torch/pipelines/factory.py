@@ -6,8 +6,9 @@ import torch
 
 from atmonr_tpu_torch.pipelines.base import Pipeline
 from atmonr_tpu_torch.pipelines.instant_ngp import InstantNGPPipeline
+from atmonr_tpu_torch.pipelines.nerf import NeRFPipeline
 
-_PIPELINES = {"InstantNGP": InstantNGPPipeline}
+_PIPELINES = {"InstantNGP": InstantNGPPipeline, "NeRF": NeRFPipeline}
 
 
 def get_pipeline(
@@ -20,10 +21,6 @@ def get_pipeline(
     unless the caller names another), its parameters drawn from
     ``generator`` (seed 0 when None)."""
     pipeline_type = config["type"]
-    if pipeline_type == "NeRF":
-        raise NotImplementedError(
-            "the NeRF pipeline is ROADMAP.md queue 1, 'NeRF pipeline'"
-        )
     if pipeline_type not in _PIPELINES:
         raise NotImplementedError(
             f"No pipeline registered under {pipeline_type!r}; "

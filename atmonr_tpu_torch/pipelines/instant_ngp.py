@@ -22,7 +22,14 @@ that names none runs bf16), and their table gradients the scatter-add kernel
 (K2). ``forward`` runs under autograd; the inference entry points
 (``update_aux``, ``extract``) switch it off themselves. ``compute_loss``
 selects the config's loss on each ray's own band, and ``make_optimizer``
-builds the clipped AdamW. ``include_height`` is still to be ported.
+builds the clipped AdamW.
+
+``include_height`` appends the normalized ellipsoidal height to the
+[0,1]-remapped points before the altitude compression: a 4-D position grid,
+which no kernel takes (the JAX package's Pallas gate is D in (2, 3)), so
+``resolve_fwd_mode`` sends it to the exact gather (``xla_bf16`` under
+``auto``). An occupancy grid refuses it, as in the JAX package: the dense
+refresh generates points in the preprocessed cube, with no height.
 """
 
 from __future__ import annotations
@@ -44,7 +51,12 @@ from atmonr_tpu_torch.models.mlp import SmallMLP
 from atmonr_tpu_torch.ops import occupancy
 from atmonr_tpu_torch.ops.compositor import render, render_with_surface
 from atmonr_tpu_torch.ops.losses import get_loss
-from atmonr_tpu_torch.ops.samplers import sample_pdf, sample_piecewise, sample_uniform_bins
+from atmonr_tpu_torch.ops.samplers import (
+    append_heights,
+    sample_pdf,
+    sample_piecewise,
+    sample_uniform_bins,
+)
 from atmonr_tpu_torch.pipelines.base import Pipeline
 from atmonr_tpu_torch.training.optim import ClippedAdamW
 from atmonr_tpu_torch.training.schedules import apply_warmup
@@ -74,13 +86,7 @@ class InstantNGPPipeline(Pipeline):
         self.num_density_outputs = (
             config["num_bands"] if config["multi_band_extinction"] else 1
         )
-        if config["include_height"]:
-            raise NotImplementedError(
-                "include_height needs append_heights and a 4-D position "
-                "grid (ROADMAP.md queue 1, 'include_height and the NeRF "
-                "pipeline')"
-            )
-        self.num_inputs = 3
+        self.num_inputs = 4 if config["include_height"] else 3
         ngp = config["instant_ngp"]
 
         self.pos_cfg = hg.HashGridConfig.from_options(ngp["encoding"], self.num_inputs)
@@ -108,6 +114,8 @@ class InstantNGPPipeline(Pipeline):
         self.compute_dtype = torch.bfloat16
         self.occ_cfg = None
         if config.get("occupancy"):
+            if config["include_height"]:
+                raise ValueError("an occupancy grid requires include_height=false")
             self.occ_cfg = occupancy.OccupancyConfig.from_options(config["occupancy"])
         imp = config.get("importance_sampler") or None
         self.importance = (int(imp["n_coarse"]), int(imp["n_fine"])) if imp else None
@@ -150,21 +158,6 @@ class InstantNGPPipeline(Pipeline):
             )
             if self.surface_head_init == "quiet":
                 self.surf_mlp.layers[-1].weight.mul_(0.01)
-
-    def load_params(self, params: Mapping[str, torch.Tensor]) -> None:
-        """Copy a parameter state dict (``convert.params_from_jax``'s
-        layout) in; every parameter must be given, and nothing else."""
-        own = dict(self.named_parameters())
-        if set(params) != set(own):
-            raise KeyError(
-                f"parameter names differ: missing {sorted(set(own) - set(params))}, "
-                f"unexpected {sorted(set(params) - set(own))}"
-            )
-        with torch.no_grad():
-            for name, value in params.items():
-                if own[name].shape != value.shape:
-                    raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
-                own[name].copy_(value)
 
     def _surf_tables(self) -> dict[int, torch.Tensor]:
         return {int(i): t for i, t in self.surf_enc.items()}
@@ -220,8 +213,11 @@ class InstantNGPPipeline(Pipeline):
 
     def _encoder_inputs(self, pts: torch.Tensor) -> torch.Tensor:
         """Normalized scene points (B, N, 3) -> hash-encoder inputs: point
-        preprocessor, [0,1] remap, altitude compression."""
+        preprocessor, [0,1] remap, optional height channel, altitude
+        compression."""
         pts = self._unit_coords(pts)
+        if self.config["include_height"]:
+            pts = append_heights(pts, self.ray_origin_height, self.scale, self.offset)
         alt_c = pts[..., 2] / self.config["alt_compress_factor"]
         return torch.cat([pts[..., :2], alt_c[..., None], pts[..., 3:]], dim=-1)
 
@@ -288,8 +284,8 @@ class InstantNGPPipeline(Pipeline):
         ray_batch: Mapping[str, torch.Tensor],
         draws: Mapping[str, torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The sample positions of one forward: the (B*n, 3) inputs of the
-        position hash encoder and the (B, n) depths. They depend on the rays,
+        """The sample positions of one forward: the (B*n, 3 or 4) inputs of
+        the position hash encoder and the (B, n) depths. They depend on the rays,
         the draws and the occupancy grid (or, with the importance sampler,
         the density branch), and carry no gradient."""
         pts, z_vals, _ = self._sample(ray_batch, draws or {})

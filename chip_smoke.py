@@ -60,14 +60,14 @@ Phases, each of which raises on failure:
    of the grid build, points/s over the whole ``run_extraction`` (both
    copies included), K1's launches against ceil(N / 32,768) (a count that
    differs raises) and peak device memory; each ``[compare] extract
-   <grid>`` line 65,536 of its points (seed 0) on the card and on the CPU,
+   <grid>`` line 16,384 of its points (seed 0) on the card and on the CPU,
    float32 MLPs and one preprocessor, at most 1% of rows outside rtol
    1e-4 + 1e-6 of max|sigma|, and the main run's bfloat16 sigma against the
    CPU's with its own preprocessor (printed, no limit). K1 q8 is also held
    to its plain version at the first l1c batch's own points. ``[orbit]``:
    60 frames of the l1c volume, laid out as ``make_video`` reads the
    extract, at 640x480 with 192 samples a ray, in ms a frame; one frame
-   against the CPU's, max |brightness difference| <= 1e-4. The netCDF
+   (at 160x120) against the CPU's, max |brightness difference| <= 1e-4. The netCDF
    writers and the L1C, DEM and EarthCARE readers need h5py, which the
    card's machine lacks: the phase says so on a line of its own and does
    not call them.
@@ -97,9 +97,29 @@ Phases, each of which raises on failure:
    surface grid on the batch's surface points (K1 <= 1e-6 * max|out|, K2
    <= 1e-4 * max|dW|).
 
+   After D, the pair-bucket configs (``hashed_tile: "on"``; the position
+   grid takes the exact gather over the bf16 table, no kernel):
+   ``instant_ngp_occ21_pb.json`` on D's granule, a refresh, a forward, 32
+   steps, the loss falls, card vs CPU on one forward, K1 bf16 D=2 and K2 D=2
+   once per step and no D=3 launch; then ``instant_ngp_pb.json``, 2 steps
+   of 8 micro-batches.
+8. NeRF: ``configs/nerf.json`` unchanged at full width (4,096 rays, 64 + 128
+   samples, ``L_x`` [14, 14, 10], ``L_d`` 4, 256 wide) on the flagship's
+   granule, seed-0 weights: 512 rays rendered deterministically on the card
+   and on the CPU (one preprocessor; at most 1% of rays outside rtol 1e-4 +
+   1e-6 of max in the coarse pass and the fine depths, and in the fine pass
+   at the card's fine samples; ``nerf_card_vs_cpu`` says why), 3 forwards, 48 steps of ``Trainer.iterate`` (finite losses,
+   the last quarter's mean below the first's), a voxel-grid extraction of
+   (N, 4) sigma, steady ms per step and rays/s beside the step's float32
+   GEMM bound, one profiled step with its GEMM share, peak memory; no K1 or
+   K2 launch. Then ``include_height`` (no preprocessor, set in memory) for
+   ``nerf.json`` (``L_x`` gains a 4th entry of 10) and for
+   ``instant_ngp_tpu.json`` (a 4-D position grid, no D=3 launch), 8 steps
+   each with finite losses.
+
 Each main path (phases 4-5, phase 6's training and each of its three
-grids, and each configuration of phase 7) has every launch count set to 0
-just before it and read just after it. The
+grids, each configuration of phase 7 and each path of phase 8) has every
+launch count set to 0 just before it and read just after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is the result, ``{"ok": true, "device": ...}``.
 """
@@ -157,15 +177,21 @@ GRAD_RTOL, GRAD_ATOL, GRAD_BAD_ROWS, GRAD_REL_L2 = 1e-3, 1e-4, 0.01, 3e-3
 BLOCK = 16  # steps per timed block: one occupancy refresh inside each
 # The extract phase: the grids at the extract CLI's defaults (l1c at a 25 m
 # ladder, 801 levels), queried in the CLI's 32,768-point batches. Card
-# against CPU on 65,536 points of each grid fixed by seed 0, float32 MLPs
+# against CPU on 16,384 points of each grid fixed by seed 0, float32 MLPs
 # and the card's preprocessor on both (as for the trained model above):
 # rows outside rtol 1e-4 + 1e-6 of max|sigma| at most 1%. Orbit frames at
 # the renderer's defaults; one frame held to the CPU's to 1e-4.
 EXTRACT_BATCH = 32768
-EXTRACT_COMPARE = 65536
+EXTRACT_COMPARE = 16384
 SIGMA_RTOL, SIGMA_ATOL, SIGMA_BAD = 1e-4, 1e-6, 0.01
 ORBIT_FRAMES, ORBIT_CHECK_FRAME, FRAME_TOL = 60, 7, 1e-4
 ORBIT_RES = (640, 480, 192)  # width, height, samples a ray
+# the frame held to the CPU's: the same camera at a quarter of the width and
+# height (at full size the CPU takes ~8 s for it)
+ORBIT_CHECK_RES = (160, 120, 192)
+# configs/nerf.json's path: train steps (past three epoch ends at 4,096 rays),
+# rays rendered on the card and on the CPU; the include_height paths' steps
+NERF_STEPS, NERF_COMPARE, HEIGHT_STEPS = 48, 512, 8
 
 
 def log(msg: str) -> None:
@@ -513,9 +539,10 @@ def phase_slice(card: str) -> tuple[dict, dict]:
 
 
 def log_profile(prof, label: str, unprofiled_us: float, wall_us: float, card: str,
-                top: int) -> None:
+                top: int) -> tuple[float, dict]:
     """Device time by kernel of one profiled call, and the card's idle
-    share over the unprofiled call and over the profiled one."""
+    share over the unprofiled call and over the profiled one. Returns the
+    busy microseconds and the microseconds by kernel name."""
     # kernels and copies; not the device-side ranges of user annotations
     # (the optimizer's "Optimizer.step#AdamW.step"), which span their kernels
     events = prof.events()
@@ -535,6 +562,7 @@ def log_profile(prof, label: str, unprofiled_us: float, wall_us: float, card: st
         f"({wall_us:.0f} us), on {card}")
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
         log(f"[profile]   {sum(ts):8.1f} us  x{len(ts):<4d} {name[:90]}")
+    return busy_us, {name: sum(ts) for name, ts in by_name.items()}
 
 
 def phase_profile(ctx: dict, card: str) -> None:
@@ -575,6 +603,20 @@ def phase_profile(ctx: dict, card: str) -> None:
         log_profile(prof, label, med * 1e6, wall_us, card, top=6)
 
 
+def _bad_rays(card: dict, cpu: dict, keys, n: int) -> tuple[torch.Tensor, dict]:
+    """Rays where any of ``keys`` differs between the card's outputs and the
+    CPU's by more than rtol 1e-4 plus 1e-6 of the CPU output's largest
+    value, and each output's max abs error against its largest value."""
+    bad = torch.zeros(n, dtype=torch.bool)
+    worst = {}
+    for k in keys:
+        a, b = card[k].cpu(), cpu[k]
+        worst[k] = f"{float((a - b).abs().max()):.3g} of {float(b.abs().max()):.3g}"
+        err = (a - b).abs() > 1e-4 * b.abs() + 1e-6 * b.abs().max()
+        bad |= err.reshape(n, -1).any(dim=1)
+    return bad, worst
+
+
 def phase_card_vs_cpu(ctx: dict, share_preprocessor: bool = False) -> None:
     """One batch on the card and on the CPU, float32 MLP products on both.
     ``share_preprocessor`` gives the CPU pipeline the card's preprocessed
@@ -606,14 +648,8 @@ def phase_card_vs_cpu(ctx: dict, share_preprocessor: bool = False) -> None:
     with torch.no_grad():
         out_card = pipe(batch)
         out_cpu = cpu({k: v.cpu() for k, v in batch.items()})
-    bad = torch.zeros(BATCH, dtype=torch.bool)
-    worst = {}
-    for k in out_cpu:
-        a, b = out_card[k].cpu(), out_cpu[k]
-        worst[k] = f"{float((a - b).abs().max()):.3g} of {float(b.abs().max()):.3g}"
-        if k in ("color_map_fine", "color_surf", "z_vals_fine"):
-            err = (a - b).abs() > 1e-4 * b.abs() + 1e-6 * b.abs().max()
-            bad |= err.reshape(BATCH, -1).any(dim=1)
+    _, worst = _bad_rays(out_card, out_cpu, out_cpu, BATCH)
+    bad, _ = _bad_rays(out_card, out_cpu, ("color_map_fine", "color_surf", "z_vals_fine"), BATCH)
     share = float(bad.float().mean())
     log(f"[compare] card vs CPU, {BATCH} rays, float32: {int(bad.sum())} rays "
         f"({share:.4%}) outside rtol 1e-4 in color, surface color or depths; "
@@ -978,11 +1014,12 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
     if len(frames) != ORBIT_FRAMES or any(f.shape != (h, w) or f.dtype != np.uint8 for f in frames):
         raise RuntimeError("orbit frames: wrong count, shape or type")
     eye, center = orbit_camera(volume.shape, ORBIT_CHECK_FRAME, ORBIT_FRAMES)
+    cw, ch, cn = ORBIT_CHECK_RES
     got = render_frame(torch.from_numpy(volume).cuda(), torch.from_numpy(eye).cuda(),
-                       torch.from_numpy(center).cuda(), width=w, height=h, n_samples=n).cpu()
+                       torch.from_numpy(center).cuda(), width=cw, height=ch, n_samples=cn).cpu()
     t0 = time.perf_counter()
     want = render_frame(torch.from_numpy(volume), torch.from_numpy(eye), torch.from_numpy(center),
-                        width=w, height=h, n_samples=n)
+                        width=cw, height=ch, n_samples=cn)
     cpu_s = time.perf_counter() - t0
     err = float((got - want).abs().max())
     if not float(want.max()) > 0:
@@ -992,7 +1029,7 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
         f"{1e3 * statistics.median(frame_s):.2f}, first {1e3 * frame_s[0]:.2f}; host clock, the "
         f"frame's copy to the host included), peak device memory {peak_mib:.0f} MiB; uint8 "
         f"levels up to {max(int(f.max()) for f in frames)}; frame "
-        f"{ORBIT_CHECK_FRAME} card vs CPU: max |brightness difference| {err:.3g} (tolerance "
+        f"{ORBIT_CHECK_FRAME} at {cw}x{ch} card vs CPU: max |brightness difference| {err:.3g} (tolerance "
         f"{FRAME_TOL:g}; brightest {float(want.max()):.3g}; the CPU took {cpu_s:.1f} s); on {card}")
     if not err <= FRAME_TOL:
         raise RuntimeError(f"orbit frame card vs CPU: {err} > {FRAME_TOL}")
@@ -1026,13 +1063,18 @@ def run_config(tag: str, config: dict, ds, card: str, *, steps: int, mode: str =
     ``n_forwards`` renders of 8,192 rays, an extraction of ``extract_points``
     points (each where asked), then ``steps`` steps of ``Trainer.iterate``,
     with every launch count set to 0 just before and read just after, and
-    held to what the config's sampler and ``mode`` imply. Then steady step
-    times and one profiled step. Returns the counts and the objects."""
+    held to what the config's sampler and ``mode`` imply (no D=3 launch
+    where the position grid takes no kernel: the pair-bucket and 4-D
+    grids). Then steady step times and one profiled step. Returns the
+    counts and the objects."""
     from atmonr_tpu_torch import Trainer, get_pipeline, run_extraction
+    from atmonr_tpu_torch.models import hash_grid as hg
     from torch.profiler import ProfilerActivity, profile
 
+    t_begin = time.perf_counter()
     pcfg = config["pipeline"]
     pipe = get_pipeline(pcfg, ds)
+    pos_kernel = hg.resolve_fwd_mode(pipe.pos_cfg) in hg.KERNEL_MODES
     tcfg = dict(config["trainer"], num_iters=steps)
     rays = ds.rays()
     batches = [{k: v[i * BATCH:(i + 1) * BATCH] for k, v in rays.items()} for i in range(3)]
@@ -1100,11 +1142,14 @@ def run_config(tag: str, config: dict, ds, card: str, *, steps: int, mode: str =
         k1_d3_extra=int(refresh) + n_forwards * k1_d3 + n_batches + refreshes,
         k1_d2_extra=n_forwards,
     )
+    if not pos_kernel:
+        want = {k: n for k, n in want.items() if k[2] != 3}
     if launched(counts) != want:
         raise RuntimeError(f"[{tag}] launches: {show(counts)}; expected {show(want)}")
     sampler = "occupancy" if occ else "importance" if imp else "uniform"
     log(f"[{tag}] {sampler} sampler, {n} samples per ray = {BATCH * n} points per step, "
-        f"{n_micro} micro-batch(es), pos table {pipe.pos_cfg.total_params} rows; inference part "
+        f"{n_micro} micro-batch(es), pos table {pipe.pos_cfg.total_params} rows "
+        f"({hg.resolve_fwd_mode(pipe.pos_cfg)}, {pipe.pos_cfg.n_dims}-D); inference part "
         f"(refresh {int(refresh)}, forwards {n_forwards}, extraction {extract_points} points) "
         f"{infer_s * 1e3:.1f} ms; {steps} steps through Trainer.iterate: loss first {k} "
         f"{first:.4f}, last {k} {last:.4f}; steps 2-{steps} with epoch ends "
@@ -1127,6 +1172,7 @@ def run_config(tag: str, config: dict, ds, card: str, *, steps: int, mode: str =
     log(f"[profile] {tag} step launches: "
         + show({key: after[key] - before[key] for key in after}))
     log_profile(prof, f"{tag} train step", med * 1e6, wall_us, card, top=6)
+    log(f"[time] {tag}: {time.perf_counter() - t_begin:.1f} s")
     return {"counts": counts, "config": config, "ds": ds, "pipe": pipe, "trainer": trainer,
             "batch": batches[0]}
 
@@ -1135,8 +1181,9 @@ def check_path_kernels(tag: str, pipe, batch: dict, rows: list[dict]) -> dict:
     """K1 (in the pipeline's mode) and K2 against their plain versions at
     the shapes this path gives them: the pos grid on one forward's own
     sample points over the trained table (with the importance sampler also
-    its coarse pass's points, which K2 never sees), the surface grid on the
-    batch's own surface points. K1 within ``K1_TOL * max|out|``; K2 within
+    its coarse pass's points, which K2 never sees; none where the position
+    grid takes no kernel), the surface grid on the batch's own surface
+    points. K1 within ``K1_TOL * max|out|``; K2 within
     1e-4 * max|dW| (the points cluster). Each result goes into its kernel's
     row; returns them by (grid, kernel)."""
     from atmonr_tpu_torch.models import hash_grid as hg
@@ -1147,7 +1194,7 @@ def check_path_kernels(tag: str, pipe, batch: dict, rows: list[dict]) -> dict:
     draws = pipe.make_draws(b, torch.Generator(device=dev).manual_seed(13))
     with torch.no_grad():
         x, _ = pipe.sample_points(batch, draws)
-        sets = [("pos", pipe.pos_cfg, pipe.pos_table.detach(), x, True)]
+        sets = [("pos", pipe.pos_cfg, pipe.pos_table.detach(), x.contiguous(), True)]
         if pipe.importance and pipe.occ_cfg is None:
             pts_c, _ = sample_uniform_bins(batch, pipe.importance[0], draws["coarse"])
             x_c = pipe._encoder_inputs(pts_c).reshape(-1, 3).contiguous()
@@ -1159,6 +1206,8 @@ def check_path_kernels(tag: str, pipe, batch: dict, rows: list[dict]) -> dict:
     out = {}
     for label, cfg, table, pts, with_k2 in sets:
         mode = hg.resolve_fwd_mode(cfg)
+        if mode not in hg.KERNEL_MODES:  # a pair-bucket or 4-D grid
+            continue
         res = {("K1", mode, cfg.n_dims): check_k1(mode, f"{tag} {label}", cfg, table, pts, reps=20)}
         if with_k2:
             g = torch.randn((pts.shape[0], cfg.n_output_dims), device=dev, generator=gen)
@@ -1189,7 +1238,7 @@ def phase_configs(flagship: dict, card: str, rows: list[dict]) -> dict:
     # A: the flagship's structure with fwd_mode auto = bf16
     a = run_config("A occ13_bf16", load_config(CONFIGS / "instant_ngp_tpu_occ13_bf16.json"), ds,
                    card, steps=64, refresh=True, n_forwards=3, extract_points=131072,
-                   must_fall=True, steady=(8, BLOCK))
+                   must_fall=True, steady=(4, BLOCK))
     if any(n for k, n in a["counts"].items() if k[1] == "q8"):
         raise RuntimeError("path A launched the q8 kernel")
     check_path_kernels("A occ13_bf16", a["pipe"], a["batch"], rows)
@@ -1231,6 +1280,32 @@ def phase_configs(flagship: dict, card: str, rows: list[dict]) -> dict:
     check_path_kernels("D instant_ngp", r["pipe"], {k: v[:micro] for k, v in r["batch"].items()},
                        rows)
     paths["D micro"] = r["counts"]
+    del r
+    torch.cuda.empty_cache()
+
+    # D with the pair-bucket hash: the position grid's hashed levels take the
+    # window hash and no kernel (the exact gather over the bf16 table); the
+    # surface grid K1 bf16 and K2 D=2 once per step
+    d = run_config("D occ21_pb", load_config(CONFIGS / "instant_ngp_occ21_pb.json"), big, card,
+                   steps=32, refresh=True, n_forwards=1, must_fall=True, steady=(2, BLOCK))
+    pos_cfg = d["pipe"].pos_cfg
+    if hg.resolve_fwd_mode(pos_cfg) != "xla_bf16" or any(n for k, n in d["counts"].items()
+                                                          if k[2] == 3):
+        raise RuntimeError("path D occ21_pb launched a D=3 kernel")
+    log(f"[D occ21_pb] pair-bucket levels: "
+        f"{sum(hg._use_hashed_tiles(pos_cfg, lv) for lv in range(pos_cfg.n_levels))} of "
+        f"{pos_cfg.n_levels} (the hashed 3-D levels); no D=3 launch")
+    check_path_kernels("D occ21_pb", d["pipe"], d["batch"], rows)
+    phase_card_vs_cpu(d, share_preprocessor=True)
+    paths["D pb"] = d["counts"]
+    del d
+    torch.cuda.empty_cache()
+    r = run_config("D instant_ngp_pb", load_config(CONFIGS / "instant_ngp_pb.json"), big, card,
+                   steps=2, steady=(1, 1))
+    if r["trainer"].micro_batch != BATCH // 8 or any(n for k, n in r["counts"].items()
+                                                     if k[2] == 3):
+        raise RuntimeError("path D instant_ngp_pb: not 8 micro-batches, or a D=3 launch")
+    paths["D micro pb"] = r["counts"]
     del r, big
     torch.cuda.empty_cache()
 
@@ -1241,7 +1316,7 @@ def phase_configs(flagship: dict, card: str, rows: list[dict]) -> dict:
         ngp["encoding"]["fwd_mode"] = mode
         ngp["surface_encoding"]["nested"][0]["fwd_mode"] = mode
         r = run_config(f"flagship {mode}", config, ds, card, steps=4, mode=mode, n_forwards=1,
-                       steady=(2, BLOCK))
+                       steady=(1, BLOCK))
         if mode == "f32":
             pipe = r["pipe"]
             with torch.no_grad():
@@ -1265,7 +1340,241 @@ def phase_configs(flagship: dict, card: str, rows: list[dict]) -> dict:
     return paths
 
 
+def nerf_step_bound(pipe, batch_size: int) -> tuple[float, float]:
+    """(float32 operations, ms) of one NeRF train step's GEMMs, the least
+    time at the float32 peak: every sample point's AtmoNeRF products (N_c
+    points a ray through the coarse MLP, N_c + N_f through the fine), two
+    operations a multiply-add, three products a layer forward and
+    backward."""
+    macs = 0
+    for model, n in ((pipe.coarse, pipe.n_coarse), (pipe.fine, pipe.n_coarse + pipe.n_fine)):
+        per_point = sum(getattr(model, f"fc{i}").weight.numel() for i in range(1, 12))
+        macs += batch_size * n * per_point
+    ops = 2 * 3 * macs
+    return ops, 1e3 * ops / PEAK_F32_S
+
+
+def nerf_card_vs_cpu(tag: str, config: dict, ds, pipe, batch: dict) -> None:
+    """``NERF_COMPARE`` rays rendered deterministically on the card and on the
+    CPU, the CPU taking the card's preprocessed points (as the other paths
+    are held), each check at most 1% of rays outside rtol 1e-4 plus 1e-6 of
+    the largest value:
+
+    - independently on both devices: the coarse color map and weights and
+      every fine depth. The fine color map's share is printed, not held: the
+      fine samples invert the CDF of the coarse weights, whose last bits the
+      two devices' GEMMs round differently, so the fine depths differ by
+      ~1e-5 of their value, and a sample that moves by that much moves its
+      2^13 pi encoding by a visible angle;
+    - the CPU's fine pass at the card's fine samples (``sample_pdf``'s
+      result shared, as the preprocessor is): the fine color map and
+      weights."""
+    from atmonr_tpu_torch import get_pipeline
+    from atmonr_tpu_torch.pipelines import nerf as nerf_module
+
+    cpu = get_pipeline(config["pipeline"], ds, device="cpu")
+    cpu.load_state_dict(pipe.state_dict())
+    if pipe.point_preprocessor:
+        cpu.point_preprocessor = lambda pts: pipe.point_preprocessor(pts.to(pipe.device)).cpu()
+    sub = {k: v[:NERF_COMPARE] for k, v in batch.items()}
+    sub_cpu = {k: v.cpu() for k, v in sub.items()}
+    sample_pdf, card_samples = nerf_module.sample_pdf, []
+
+    def record(*args, **kwargs):
+        card_samples.append(sample_pdf(*args, **kwargs))
+        return card_samples[-1]
+
+    try:
+        with torch.no_grad():
+            nerf_module.sample_pdf = record
+            out_card = pipe(sub)
+            nerf_module.sample_pdf = sample_pdf
+            out_cpu = cpu(sub_cpu)
+            nerf_module.sample_pdf = lambda *args, **kwargs: tuple(t.cpu() for t in card_samples[0])
+            out_shared = cpu(sub_cpu)
+    finally:
+        nerf_module.sample_pdf = sample_pdf
+    n = NERF_COMPARE
+    own, worst_own = _bad_rays(out_card, out_cpu, ("color_map_coarse", "weights_coarse",
+                                                   "z_vals_fine"), n)
+    fine_own, worst_fine = _bad_rays(out_card, out_cpu, ("color_map_fine",), n)
+    shared, worst_shared = _bad_rays(out_card, out_shared, ("color_map_fine", "weights_fine"), n)
+    same = (out_card["z_vals_fine"].cpu() == out_cpu["z_vals_fine"]).all(dim=1)
+    log(f"[compare] {tag} card vs CPU, {n} rays, deterministic, one preprocessor: independent "
+        f"renders {int(own.sum())} rays ({float(own.float().mean()):.4%}) outside rtol 1e-4 + "
+        f"1e-6 of max in the coarse color or weights or the fine depths ({worst_own}); the fine "
+        f"color {int(fine_own.sum())} rays ({float(fine_own.float().mean()):.4%}, "
+        f"{worst_fine}; {int(same.sum())} rays place every fine sample bit for bit alike; not "
+        f"held); at the card's fine samples {int(shared.sum())} rays "
+        f"({float(shared.float().mean()):.4%}) in the fine color or weights ({worst_shared})")
+    if float(own.float().mean()) > 0.01 or float(shared.float().mean()) > 0.01:
+        raise RuntimeError(f"{tag}: card and CPU renders disagree on more than 1% of the rays")
+
+
+def run_nerf(tag: str, config: dict, ds, card: str, *, steps: int, full: bool) -> dict:
+    """A NeRF configuration's main path at full width, random weights from
+    seed 0, every launch count set to 0 just before and read just after
+    (nothing may launch: the path's device work is GEMMs and plain
+    PyTorch). With ``full``: deterministic forwards, a card-vs-CPU render,
+    ``steps`` steps of ``Trainer.iterate`` (finite losses; the deterministic
+    loss of the forwards' batches falls), steady
+    ms per step beside the GEMM bound, one profiled step with its GEMM
+    share, peak memory, and a voxel-grid extraction. Otherwise the steps
+    alone, finite. Returns the counts."""
+    from atmonr_tpu_torch import Trainer, get_extract_dataset, get_pipeline, run_extraction
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = get_pipeline(config["pipeline"], ds, generator=torch.Generator().manual_seed(0))
+    tcfg = dict(config["trainer"], num_iters=steps)
+    b = int(tcfg["batch_size"])
+    rays = ds.rays()
+    batches = [{k: v[i * b:(i + 1) * b] for k, v in rays.items()} for i in range(3)]
+    n_c, n_f = pipe.n_coarse, pipe.n_fine
+    ops, bound_ms = nerf_step_bound(pipe, b)
+    log(f"[{tag}] {b} rays a step, {n_c} + {n_f} samples, L_x {pipe.L_x}, L_d {pipe.L_d}, "
+        f"width {config['pipeline']['mlp_hidden_dim']}, include_height "
+        f"{config['pipeline']['include_height']}: {sum(p.numel() for p in pipe.parameters())} "
+        f"parameters; one step's GEMMs {ops / 1e12:.3f} TFLOP = {bound_ms:.2f} ms at the "
+        f"float32 peak ({1e3 * b / bound_ms:.0f} rays/s)")
+    if full:
+        nerf_card_vs_cpu(tag, config, ds, pipe, batches[2])
+    with tempfile.TemporaryDirectory() as root:
+        trainer = Trainer(tcfg, ds, pipe, f"chip_smoke_{tag}", data_root=root, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        fwd_s, eval_before = [], []
+        for i in range(3 if full else 0):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = pipe(batches[i])
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+            eval_before.append(float(pipe.compute_loss(batches[i], out)))
+            for k, shp in (("color_map_fine", (b, 4)), ("z_vals_fine", (b, n_c + n_f)),
+                           ("weights_coarse", (b, n_c, 1)), ("sigma_fine", (b, n_c + n_f, 4))):
+                if tuple(out[k].shape) != shp or not torch.isfinite(out[k]).all():
+                    raise RuntimeError(f"[{tag}] {k}: shape {tuple(out[k].shape)}, want {shp}, "
+                                       "or not finite")
+        losses = []
+        t0 = time.perf_counter()
+        for _ in trainer.iterate(Path(root) / "output"):
+            losses.append(trainer.last_loss)
+        torch.cuda.synchronize()
+        iterate_s = time.perf_counter() - t0
+        n_ckpt = len(list((Path(root) / "output").glob("epoch_*.pt")))
+        sigma = grid = None
+        if full:
+            with torch.no_grad():
+                eval_after = [float(pipe.compute_loss(bt, pipe(bt))) for bt in batches]
+            grid = get_extract_dataset("voxelgrid", ds, horizontal_step=3000.0, alt_step=250.0)
+            t0 = time.perf_counter()
+            sigma = run_extraction(pipe, grid, batch_size=EXTRACT_BATCH)
+            extract_s = time.perf_counter() - t0
+        counts = read_counts()
+        # ---- end of the main path ----
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    if launched(counts):
+        raise RuntimeError(f"[{tag}] a hash-grid kernel launched on the NeRF path: {show(counts)}")
+    loss = torch.stack(losses).cpu()
+    if trainer.iter_count != steps or loss.shape != (steps,) or not bool(torch.isfinite(loss).all()):
+        raise RuntimeError(f"[{tag}] ran {trainer.iter_count} steps; losses finite: "
+                           f"{bool(torch.isfinite(loss).all())}")
+    k = max(1, steps // 4)
+    first, last = float(loss[:k].mean()), float(loss[-k:].mean())
+    log(f"[{tag}] {steps} steps through Trainer.iterate ({trainer.steps_per_epoch} a epoch, "
+        f"{n_ckpt} checkpoints): loss first {k} {first:.4f}, last {k} {last:.4f}; "
+        f"{1e3 * iterate_s / steps:.2f} ms per step with epoch ends; peak device memory "
+        f"{peak_mib:.0f} MiB; launches on the path: {show(counts)}; on {card}")
+    if not full:
+        return counts
+    # The step losses are each a new batch's: on this granule their spread
+    # (~42 a batch at init; radiances average ~33, the colors are at most e)
+    # is as large as the fall the model can make, so the fall is held on the
+    # deterministic loss of the same three batches before and after the steps
+    before, after = statistics.mean(eval_before), statistics.mean(eval_after)
+    log(f"[{tag}] the deterministic loss of the first three batches ({3 * b} rays): "
+        f"{before:.4f} before the steps, {after:.4f} after; the step losses' spread "
+        f"at init: {statistics.pstdev(float(x) for x in loss[:k]):.4f}")
+    if not after < before:
+        raise RuntimeError(f"[{tag}] the loss did not fall: {before} -> {after}")
+    med_fwd = statistics.median(fwd_s[1:])
+    log(f"[{tag}] deterministic forward of {b} rays (median of 2 after the first): "
+        f"{med_fwd * 1e3:.2f} ms = {b / med_fwd:.0f} rays/s; all three: "
+        + ", ".join(f"{x * 1e3:.2f}" for x in fwd_s) + " ms")
+    n = len(grid)
+    if (sigma.shape != (n, 4) or not np.all(np.isfinite(sigma)) or np.any(sigma < 0)
+            or not float(sigma.max()) > 0):
+        raise RuntimeError(f"[{tag}] voxelgrid sigma not finite, non-negative, (N, 4)")
+    log(f"[{tag} extract voxelgrid] {n} points, shape {grid.shp}: run_extraction "
+        f"{extract_s:.3f} s = {n / extract_s:.0f} points/s in ceil({n}/{EXTRACT_BATCH}) batches; "
+        f"sigma (N, 4), max {float(sigma.max()):.3g} m^-1; on {card}")
+
+    per = steady_step_s(trainer, 2, 8)
+    med = statistics.median(per)
+    log(f"[steady] {tag} train step of {b} rays (median of 2 blocks of 8 steps): "
+        f"{med * 1e3:.2f} ms = {b / med:.0f} rays/s, min {min(per) * 1e3:.2f}, max "
+        f"{max(per) * 1e3:.2f} ms; the GEMM bound {bound_ms:.2f} ms is {bound_ms / (med * 1e3):.1%} "
+        f"of it; on {card}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(torch.arange(b, device=pipe.device))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, by_name = log_profile(prof, f"{tag} train step", med * 1e6, wall_us, card, top=8)
+    gemm_us = sum(t for name, t in by_name.items()
+                  if any(w in name.lower() for w in ("gemm", "xmma", "cutlass", "cublas")))
+    log(f"[profile] {tag}: GEMM kernels {gemm_us:.0f} us = {gemm_us / busy_us:.1%} of the device "
+        f"busy time; at the float32 peak they would take {bound_ms * 1e3:.0f} us")
+    return counts
+
+
+def phase_nerf(ds, card: str) -> dict:
+    """``configs/nerf.json`` unchanged at full width (4,096 rays, 64 + 128
+    samples, 256 wide) on the flagship's granule: ``NERF_STEPS`` steps and
+    the rest of ``run_nerf``. Returns the counts by path."""
+    from atmonr_tpu_torch import load_config
+
+    config = load_config(CONFIGS / "nerf.json")
+    counts = run_nerf("N nerf", config, ds, card, steps=NERF_STEPS, full=True)
+    torch.cuda.empty_cache()
+    return {"N nerf": counts}
+
+
+def phase_include_height(ds, card: str) -> dict:
+    """The height channel: ``nerf.json`` and ``instant_ngp_tpu.json`` (uniform
+    sampler) with ``include_height`` true and no preprocessor, set in memory
+    (NeRF's ``L_x`` gains a 4th entry of 10), ``HEIGHT_STEPS`` steps each
+    with finite losses; the Instant-NGP position grid is 4-D and takes no
+    kernel, its surface grid K1 bf16 and K2 D=2. Returns the counts by
+    path."""
+    import warnings
+
+    from atmonr_tpu_torch import load_config
+
+    config = load_config(CONFIGS / "nerf.json")
+    config["pipeline"].update(include_height=True, point_preprocessor=None)
+    config["pipeline"]["encoder"]["L_x"] = config["pipeline"]["encoder"]["L_x"] + [10]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a varying L_x without a preprocessor
+        paths = {"H nerf": run_nerf("H nerf", config, ds, card, steps=HEIGHT_STEPS, full=False)}
+    torch.cuda.empty_cache()
+    config = load_config(CONFIGS / "instant_ngp_tpu.json")
+    config["pipeline"].update(include_height=True, point_preprocessor=None)
+    r = run_config("H instant_ngp", config, ds, card, steps=HEIGHT_STEPS, steady=(1, 4))
+    if r["pipe"].pos_cfg.n_dims != 4:
+        raise RuntimeError("include_height did not give a 4-D position grid")
+    paths["H instant_ngp"] = r["counts"]
+    del r
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     name, smi = phase_device()
     sys.path.insert(0, str(REPO))
     phase_build()
@@ -1274,14 +1583,22 @@ def main() -> int:
     encodings = {"pos": ngp["encoding"], "surface": ngp["surface_encoding"]["nested"][0]}
     big = json.loads((CONFIGS / "instant_ngp_occ21.json").read_text())
     rows = phase_kernels(encodings, big["pipeline"]["instant_ngp"]["encoding"])
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the kernel phase")
     counts, ctx = phase_slice(smi)
     phase_profile(ctx, smi)
     phase_card_vs_cpu(ctx)
     paths = {"flagship inference": counts, "flagship training": phase_train(ctx, smi, rows)}
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the flagship's training")
     paths.update(phase_extract(ctx, smi, rows))
     del ctx["trainer"]
     torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the extract phase")
     paths.update(phase_configs(ctx, smi, rows))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the other configurations")
+    paths.update(phase_nerf(ctx["ds"], smi))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the NeRF path")
+    paths.update(phase_include_height(ctx["ds"], smi))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the NeRF and height paths")
     for row in rows:
         key = row.pop("key")
         row["launches_by_path"] = {path: c[key] for path, c in paths.items() if c[key]}

@@ -1,7 +1,9 @@
 """The Instant-NGP configurations beyond the q8 flagship, on the CPU, against
 the JAX package: ``fwd_mode: "auto"`` (no mode named: the bf16 table) with
 each of the three samplers (occupancy grid, uniform bins, importance), the
-forward and a few ``Trainer`` steps; training without an occupancy grid; and
+forward and a few ``Trainer`` steps; training without an occupancy grid;
+the height channel (``include_height``, a 4-D position grid); the two
+pair-bucket configs (``hashed_tile: "on"``), two ``Trainer`` steps each; and
 every config file under ``configs/``.
 
 The small config is ``tests/test_torch_pipeline.py``'s with ``fwd_mode``
@@ -27,13 +29,19 @@ import torch
 import atmonr_tpu_torch
 from atmonr_tpu.data import batching as jbatching
 from atmonr_tpu.models import hash_grid as jhg
+from atmonr_tpu.ops import hash_gather_pallas as jhgp
+from atmonr_tpu.ops import samplers as jsamp
 from atmonr_tpu.ops.hash_gather_pallas import hash_encode_pallas_fwd
+from atmonr_tpu.pipelines import instant_ngp as jngp
 from atmonr_tpu.pipelines.instant_ngp import InstantNGPPipeline as JaxPipeline
 from atmonr_tpu.training import schedules as jschedules
 from atmonr_tpu_torch import Trainer, convert, get_dataset, get_pipeline
 from atmonr_tpu_torch.models import hash_grid as thg
 from atmonr_tpu_torch.ops import hash_bwd as thbo
+from atmonr_tpu_torch.ops import samplers as tsamp
+from atmonr_tpu_torch.pipelines import instant_ngp as tngp
 from atmonr_tpu_torch.training import checkpoint as tckpt
+from test_torch_nerf import _host_heights, _shared
 from test_torch_pipeline import N_RAYS, SCENE, _bad_rays, _config, _jax_dataset, _share_preprocessor
 from test_torch_train import (
     _adam_state,
@@ -411,30 +419,37 @@ CONFIGS = sorted(Path(p).name for p in glob.glob(str(Path(__file__).parent.paren
 PAIR_BUCKET = ("instant_ngp_pb.json", "instant_ngp_occ21_pb.json")
 
 
-@pytest.mark.parametrize("name", CONFIGS)
-def test_config_file_builds_a_pipeline(name):
-    """Every Instant-NGP config under ``configs/`` builds a port pipeline on
-    a tiny granule and renders 4 rays, except the two pair-bucket ones,
-    which raise with a pointer to ROADMAP.md. Tables above 2^16 entries are
-    cut to ``log2_hashmap_size`` 12 here (they change no code path: the
+def _cut_config(name: str) -> dict:
+    """A config file under ``configs/``, Instant-NGP tables above 2^16
+    entries cut to ``log2_hashmap_size`` 12 (they change no code path: the
     gather has no size gate) and 1,024 samples per ray to 64, for the CPU's
     sake."""
     config = atmonr_tpu_torch.load_config(Path(__file__).parent.parent / "configs" / name)
     pipe_cfg = config["pipeline"]
-    ngp = pipe_cfg["instant_ngp"]
-    named = ngp["encoding"].get("fwd_mode", "auto")
-    for enc in (ngp["encoding"], ngp["surface_encoding"]["nested"][0]):
-        if enc["log2_hashmap_size"] > 16:
-            enc["log2_hashmap_size"] = 12
-    pipe_cfg["num_samples_per_ray"] = min(pipe_cfg["num_samples_per_ray"], 64)
+    if pipe_cfg["type"] == "InstantNGP":
+        ngp = pipe_cfg["instant_ngp"]
+        for enc in (ngp["encoding"], ngp["surface_encoding"]["nested"][0]):
+            if enc["log2_hashmap_size"] > 16:
+                enc["log2_hashmap_size"] = 12
+        pipe_cfg["num_samples_per_ray"] = min(pipe_cfg["num_samples_per_ray"], 64)
+    return config
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_file_builds_a_pipeline(name):
+    """Every Instant-NGP config under ``configs/`` builds a port pipeline on
+    a tiny granule (tables cut as ``_cut_config`` says) and renders 4 rays.
+    The two pair-bucket ones resolve the position grid to the exact gather
+    over the bf16 table, and the surface grid to the bf16 kernel."""
+    config = _cut_config(name)
+    pipe_cfg = config["pipeline"]
+    named = pipe_cfg["instant_ngp"]["encoding"].get("fwd_mode", "auto")
     ds = get_dataset(config["dataset"], "synthetic:8x4x2", device="cpu")
-    if name in PAIR_BUCKET:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_pipeline(pipe_cfg, ds, device="cpu")
-        return
     pipe = get_pipeline(pipe_cfg, ds, device="cpu")
     want = "q8" if named == "q8" else "bf16"
-    assert thg.resolve_fwd_mode(pipe.pos_cfg) == want
+    want_pos = "xla_bf16" if name in PAIR_BUCKET else want
+    assert (pipe.pos_cfg.hashed_tile == "on") == (name in PAIR_BUCKET)
+    assert thg.resolve_fwd_mode(pipe.pos_cfg) == want_pos
     assert all(thg.resolve_fwd_mode(c) == want for c in pipe.surf_cfgs.values())
     batch = {k: torch.from_numpy(v[:4]) for k, v in ds.host_rays().items()}
     with torch.no_grad():
@@ -451,12 +466,209 @@ def test_config_file_builds_a_pipeline(name):
 
 
 def test_the_config_list_is_the_seventeen():
+    """All 18 files under ``configs/`` (the 17 Instant-NGP ones above and
+    ``nerf.json``) build a port pipeline of their type on the CPU."""
+    names = sorted(Path(p).name for p in glob.glob(str(Path(__file__).parent.parent / "configs" / "*.json")))
     assert len(CONFIGS) == 17 and set(PAIR_BUCKET) <= set(CONFIGS)
+    assert len(names) == 18 and set(names) == set(CONFIGS) | {"nerf.json"}
+    ds = get_dataset(_auto_config("uniform")["dataset"], "synthetic:8x4x2", device="cpu")
+    for name in names:
+        pipe_cfg = _cut_config(name)["pipeline"]
+        pipe = get_pipeline(pipe_cfg, ds, device="cpu")
+        want = {"NeRF": atmonr_tpu_torch.NeRFPipeline, "InstantNGP": tngp.InstantNGPPipeline}
+        assert type(pipe) is want[pipe_cfg["type"]], name
 
 
 def test_include_height_still_raises():
+    """``include_height`` with an occupancy grid is refused, as the JAX
+    package asserts (the dense refresh has no height to append), and so is
+    ``include_height`` with the horizontal preprocessor."""
+    ds = get_dataset(_auto_config("uniform")["dataset"], SCENE, device="cpu")
+    occ = _auto_config("occupancy")["pipeline"]
+    with pytest.raises(ValueError, match="occupancy grid requires include_height=false"):
+        get_pipeline(dict(occ, include_height=True, point_preprocessor=None), ds, device="cpu")
+    with pytest.raises(ValueError, match="horizontal"):
+        get_pipeline(dict(occ, include_height=True), ds, device="cpu")
+
+
+# -- the TPU dispatch of grids beyond the Pallas gate ---------------------------------
+
+
+def _tpu_dispatch(table, x, cfg, sr_noise=None, tiles=None):
+    """What ``_fwd_dispatch`` computes on the TPU for ``fwd_mode: "auto"``:
+    the gather over the bf16-cast table, by the XLA path (the 4-D grid of
+    ``include_height`` and the pair-bucket grids take it there too; the 2-D
+    and 3-D grids inside the Pallas gate take the bf16 kernel, which
+    computes the same gather, ``tests/test_torch_hash_grid.py::
+    test_kernel_mode_plain_matches_pallas_interpret``, and whose interpret
+    mode takes minutes at 16 levels on the CPU)."""
+    assert cfg.fwd_mode == "auto"
+    return jhg._hash_encode_impl(table.astype(jnp.bfloat16), x, cfg, tiles)
+
+
+# -- include_height ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tall_pair():
+    """The small config with the uniform sampler, ``include_height`` and no
+    preprocessor, in both packages at identical parameters; one float64
+    ``append_heights`` shared (as ``tests/test_torch_nerf.py`` does: the
+    float32 altitude solves differ by ~1.5 m). The position table is
+    scaled by ``IMPORTANCE_TABLE_BOOST``, for the reason given there: at
+    the init's densities the compositing weights would be exp's rounding,
+    and the color MLP's gradient with them."""
     config = _auto_config("uniform")
     config["pipeline"].update(include_height=True, point_preprocessor=None)
-    ds = get_dataset(config["dataset"], SCENE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pipeline(config["pipeline"], ds, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jhg, "_fwd_dispatch", _tpu_dispatch)
+        jds = _jax_dataset(config)
+        jpipe = JaxPipeline(config["pipeline"], jds)
+        jpipe.compute_dtype = jnp.float32
+        params = jpipe.init_params(jax.random.PRNGKey(0))
+        params["pos_table"] = params["pos_table"] * IMPORTANCE_TABLE_BOOST
+        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tpipe = get_pipeline(copy.deepcopy(config["pipeline"]), tds, device="cpu")
+        tpipe.compute_dtype = torch.float32
+        tpipe.load_params(convert.params_from_jax(params))
+        args = (jpipe.ray_origin_height, jpipe.scale, jpipe.offset)
+        jf, tf = _shared(_host_heights(jpipe.scale, jpipe.offset, jpipe.ray_origin_height),
+                         lambda p: jsamp.append_heights(p, *args),
+                         lambda p: tsamp.append_heights(p, *args), 4)
+        mp.setattr(jngp, "append_heights", lambda p, *a: jf(p))
+        mp.setattr(tngp, "append_heights", lambda p, *a: tf(p))
+        yield {"jpipe": jpipe, "tpipe": tpipe, "params": params, "tds": tds}
+
+
+def test_include_height_grid_is_four_dimensional(tall_pair):
+    """The position grid takes the height as a 4th input and, beyond the
+    kernels' D in (2, 3) as beyond JAX's Pallas gate, resolves to the exact
+    gather over the bf16 table; the surface grid keeps the bf16 kernel."""
+    tpipe = tall_pair["tpipe"]
+    assert tpipe.num_inputs == tpipe.pos_cfg.n_dims == 4
+    assert not jhgp.supported(tall_pair["jpipe"].pos_cfg, "bf16")
+    assert thg.resolve_fwd_mode(tpipe.pos_cfg) == "xla_bf16"
+    assert [thg.resolve_fwd_mode(c) for c in tpipe.surf_cfgs.values()] == ["bf16"]
+    _, tbatch = _batches(tall_pair["tds"], np.arange(N_RAYS))
+    x, _ = tpipe.sample_points(tbatch)
+    assert x.shape == (N_RAYS * 16, 4) and float(x[:, 3].max()) > 0
+
+
+@pytest.mark.parametrize("stochastic", [False, True], ids=["deterministic", "draws"])
+def test_include_height_forward_matches_jax(tall_pair, stochastic):
+    """Every output at ``_bad_rays``' tolerances (rtol 1e-5 plus 1e-6 of the
+    largest value); at most one ray may place a sample elsewhere."""
+    jpipe, tpipe, params = tall_pair["jpipe"], tall_pair["tpipe"], tall_pair["params"]
+    jbatch, tbatch = _batches(tall_pair["tds"], np.arange(N_RAYS))
+    key = jax.random.PRNGKey(2) if stochastic else None
+    draws = _draws_for({"jpipe": jpipe, "params": params, "sampler": "uniform"}, key) \
+        if stochastic else None
+    jout = jpipe.forward(params, jbatch, key=key)
+    with torch.no_grad():
+        tout = tpipe(tbatch, draws=draws)
+    bad = _bad_rays(jout, tout, 16)
+    assert len(bad) <= 1, bad
+
+
+def test_include_height_gradients_match_jax(tall_pair):
+    """Loss to rtol 1e-5 and all 13 gradients of one stochastic step to rtol
+    1e-4 plus 1e-5 of each tensor's largest value, as
+    ``test_step_gradients_match_jax``."""
+    jpipe, tpipe, params = tall_pair["jpipe"], tall_pair["tpipe"], tall_pair["params"]
+    idx = np.random.default_rng(6).permutation(len(tall_pair["tds"]))[:N_RAYS]
+    jbatch, tbatch = _batches(tall_pair["tds"], idx)
+    key = jax.random.PRNGKey(2)
+    draws = _draws_for({"jpipe": jpipe, "params": params, "sampler": "uniform"}, key)
+    jloss, jgrads = _jax_loss_and_grads(jpipe, params, jbatch, key, {})
+    tloss, tgrads = _torch_loss_and_grads(tpipe, tbatch, draws)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    jg = convert.params_from_jax(jgrads)
+    worst = _worst(tgrads, jg, rtol=1e-4, atol_of_max=1e-5)
+    assert max(worst.values()) <= 0, worst
+    assert float(jg["pos_table"].abs().max()) > 0
+
+
+# -- the pair-bucket configs -----------------------------------------------------------
+
+
+def _pb_draws(key, jpipe, b):
+    """The draws JAX's forward makes from ``key`` with no stochastic
+    rounding (no ``sr_noise`` split), under the port's names."""
+    if jpipe.occ_cfg is None:
+        return {"bins": _t(jax.random.uniform(key, (b, jpipe.config["num_samples_per_ray"])))}
+    oc = jpipe.occ_cfg
+    kp, kf = jax.random.split(key)
+    return {"probe": _t(jax.random.uniform(kp, (b, oc.n_probe))),
+            "fine": _t(jax.random.uniform(kf, (b, oc.n_fine), maxval=1.0 / oc.n_fine))}
+
+
+@pytest.fixture(scope="module", params=list(PAIR_BUCKET))
+def pb_run(request, tmp_path_factory):
+    """``K_STEPS`` steps of the port's ``Trainer`` and of a JAX loop (the JAX
+    pipeline's ``make_optimizer`` on its schedule) on a pair-bucket config
+    file as ``_cut_config`` cuts it (2^12 tables, 64 uniform samples), its
+    own optimizer and schedule at 48 rays a step, the same index vectors
+    and draws, float32 MLPs and one float64 preprocessor."""
+    name = request.param
+    config = _cut_config(name)
+    pcfg = config["pipeline"]
+    tcfg = dict(config["trainer"], batch_size=N_RAYS, num_iters=40, print_frequency=2)
+    tcfg.pop("micro_batch_size", None)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jhg, "_fwd_dispatch", _tpu_dispatch)
+        jds = _jax_dataset(config)
+        jpipe = JaxPipeline(pcfg, jds)
+        jpipe.compute_dtype = jnp.float32
+        params = jpipe.init_params(jax.random.PRNGKey(0))
+        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tpipe = get_pipeline(copy.deepcopy(pcfg), tds, device="cpu")
+        tpipe.compute_dtype = torch.float32
+        _share_preprocessor(jpipe, tpipe, jds.scene_transform)
+        trainer = Trainer(tcfg, tds, tpipe, "pb", tmp_path_factory.mktemp("pb"), device="cpu")
+        tpipe.load_params(convert.params_from_jax(params))
+        jopt = jpipe.make_optimizer(
+            tcfg["optimizer"],
+            jschedules.make_lr_schedule(tcfg["scheduler"], tcfg["optimizer"], tcfg["num_iters"],
+                                        trainer.steps_per_epoch))
+        opt_state = jopt.init(params)
+        aux = jpipe.init_aux()
+        jrays = {k: jnp.asarray(v) for k, v in tds.host_rays().items()}
+        rng = np.random.default_rng(7)
+        steps = []
+        for s in range(K_STEPS):
+            idx = rng.permutation(len(tds))[:N_RAYS]
+            key = jax.random.fold_in(jax.random.PRNGKey(3), s)
+            jbatch = jbatching.gather_batch(jrays, jnp.asarray(idx))
+            jloss, jgrads = _jax_loss_and_grads(jpipe, params, jbatch, key, aux)
+            updates, opt_state = jopt.update(jgrads, opt_state, params)
+            params = optax.apply_updates(params, updates)
+            tloss = trainer.step(_t(idx), draws=_pb_draws(key, jpipe, N_RAYS))
+            mu, nu = convert.moments_state(tpipe, trainer.optimizer.adamw)
+            adam = _adam_state(opt_state)
+            steps.append({
+                "jloss": float(jloss), "tloss": float(tloss),
+                "jmu": convert.params_from_jax(adam.mu), "jnu": convert.params_from_jax(adam.nu),
+                "tmu": mu, "tnu": nu,
+            })
+    return {"name": name, "steps": steps, "trainer": trainer}
+
+
+def test_pair_bucket_trainer_matches_jax(pb_run):
+    """Both pair-bucket configs: the position grid takes the window hash at
+    its hashed levels and no kernel; losses to rtol 1e-5; AdamW's moments
+    after each step at ``test_trainer_moments_match_jax``'s tolerances (the
+    surface grid's interpret-mode Pallas forward contracts ``x*scale + 0.5``
+    into a fused multiply-add)."""
+    pipe = pb_run["trainer"].pipeline
+    cfg = pipe.pos_cfg
+    assert cfg.hashed_tile == "on" and thg.resolve_fwd_mode(cfg) == "xla_bf16"
+    assert any(thg._use_hashed_tiles(cfg, lv) for lv in range(cfg.n_levels))
+    assert (pipe.occ_cfg is not None) == (pb_run["name"] == "instant_ngp_occ21_pb.json")
+    for i, s in enumerate(pb_run["steps"]):
+        assert np.isfinite(s["tloss"])
+        np.testing.assert_allclose(s["tloss"], s["jloss"], rtol=1e-5)
+        worst = _worst(s["tmu"], s["jmu"], rtol=1e-3, atol_of_max=1e-3)
+        assert max(worst.values()) <= 0, (i, worst)
+        worst = _worst(s["tnu"], s["jnu"], rtol=2e-3, atol_of_max=1e-3)
+        assert max(worst.values()) <= 0, (i, worst)
+    assert pb_run["trainer"].optimizer.count == K_STEPS

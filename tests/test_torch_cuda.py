@@ -1,5 +1,7 @@
 """Kernels K1 (``csrc/hash_gather.cu``) and K2 (``csrc/hash_bwd.cu``) against
-their plain PyTorch versions, on the card. These tests need CUDA and ``nvcc``; they skip where there is no
+their plain PyTorch versions, on the card, and the paths that take no kernel
+(the NeRF pipeline, the pair-bucket and 4-D position grids) there against
+the CPU. These tests need CUDA and ``nvcc``; they skip where there is no
 card. The file imports nothing of JAX, so it also runs where JAX is not
 installed:
 
@@ -15,6 +17,7 @@ from atmonr_tpu_torch.models import hash_grid as hg
 from atmonr_tpu_torch.ops import hash_bwd as hbo
 from atmonr_tpu_torch.ops import hash_gather as hgo
 from atmonr_tpu_torch.ops import kernel_plan as kp
+from atmonr_tpu_torch.pipelines import instant_ngp, nerf
 
 pytestmark = pytest.mark.cuda
 
@@ -272,9 +275,9 @@ def test_bwd_kernel_rejects_bad_inputs(dev):
     assert float(out.abs().sum()) == 0.0
 
 
-def _small_trainer(root, dev):
+def _small_trainer(root, dev, mode="q8", encoding=None, **pipeline_over):
     grid = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
-            "log2_hashmap_size": 9, "per_level_scale": 1.5, "fwd_mode": "q8"}
+            "log2_hashmap_size": 9, "per_level_scale": 1.5, "fwd_mode": mode}
     sh = {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 2}
     net = {"n_neurons": 16, "n_hidden_layers": 1}
     pipeline = {
@@ -282,7 +285,7 @@ def _small_trainer(root, dev):
         "num_bands": 4, "multi_band_extinction": False, "alt_compress_factor": 8,
         "loss": "mse_plus_hdr", "num_samples_per_ray": 16,
         "instant_ngp": {
-            "encoding": dict(grid, base_resolution=4, stochastic_rounding=True),
+            "encoding": dict(grid, base_resolution=4, stochastic_rounding=True, **(encoding or {})),
             "network": net, "rgb_network": net, "surface_network": net,
             "dir_encoding": {"otype": "Composite", "nested": [sh, {"otype": "Identity"}]},
             "surface_encoding": {"otype": "Composite", "nested": [
@@ -290,6 +293,7 @@ def _small_trainer(root, dev):
         },
         "occupancy": {"resolution": [8, 8, 4], "n_probe": 8, "n_fine": 6, "update_every": 2},
     }
+    pipeline.update(pipeline_over)
     trainer = {
         "batch_size": 250, "num_iters": 8, "print_frequency": 2,
         "optimizer": {"lr": 0.01, "betas": [0.9, 0.99], "eps": 1e-15, "weight_decay": 0.01,
@@ -328,3 +332,124 @@ def test_trainer_trains_and_resumes_on_the_card(dev, tmp_path):
         assert torch.equal(p, dict(first.pipeline.named_parameters())[name]), name
     second.train(tmp_path / "out")
     assert second.iter_count == 8 and second.epoch_idx == 2
+
+
+def _launches():
+    return dict(hgo.hash_gather.launches), dict(hbo.hash_bwd.launches)
+
+
+def _moved(before):
+    after = _launches()
+    return ({k: v - before[0][k] for k, v in after[0].items() if v != before[0][k]},
+            {k: v - before[1][k] for k, v in after[1].items() if v != before[1][k]})
+
+
+def test_kernels_refuse_a_pair_bucket_grid_on_the_card(dev):
+    """K1 and K2 index per cell: on a ``hashed_tile`` grid they raise for
+    CUDA tensors as for CPU ones, and launch nothing."""
+    cfg = hg.HashGridConfig.from_options(dict(OPTIONS, fwd_mode="bf16", hashed_tile="on"), 3)
+    x = torch.rand((64, 3), device=dev)
+    before = _launches()
+    with pytest.raises(ValueError, match="hashed_tile"):
+        hgo.hash_gather(torch.zeros((cfg.total_params, 2), device=dev).bfloat16(), None, x, cfg)
+    with pytest.raises(ValueError, match="hashed_tile"):
+        hbo.hash_bwd(x, torch.zeros((64, 32), device=dev), cfg)
+    assert _moved(before) == ({}, {})
+
+
+@pytest.mark.parametrize("variant", ["pair_bucket", "include_height"])
+def test_kernel_less_position_grid_on_the_card(dev, tmp_path, monkeypatch, variant):
+    """A pair-bucket position grid (``hashed_tile: "on"``) and a 4-D one
+    (``include_height``, uniform sampler, no preprocessor) take the exact
+    gather over the bf16 table on the card: a forward's color, surface
+    color and depths equal to the CPU's (float32 MLPs, the card's
+    preprocessor and heights) to rtol 1e-4 plus 1e-6 of the largest value
+    on all but one of 250 rays; two train steps launch K1 bf16 and K2 for
+    the surface grid only, and the loss stays finite."""
+    if variant == "pair_bucket":
+        trainer = _small_trainer(tmp_path, dev, "auto", {"hashed_tile": "on"})
+    else:
+        trainer = _small_trainer(tmp_path, dev, "auto", include_height=True,
+                                 point_preprocessor=None, occupancy=None)
+    pipe, ds = trainer.pipeline, trainer.dataset
+    assert hg.resolve_fwd_mode(pipe.pos_cfg) == "xla_bf16"
+    cpu = get_pipeline(pipe.config, ds, device="cpu")
+    cpu.load_state_dict(pipe.state_dict())
+    pipe.compute_dtype = cpu.compute_dtype = torch.float32
+    batch = {k: v[:250] for k, v in ds.rays(dev).items()}
+    # the float32 preprocessor and height solve differ by ulps between the
+    # devices (~2e-4 of the normalized altitude): the CPU takes the card's
+    if pipe.point_preprocessor:
+        cpu.point_preprocessor = lambda pts: pipe.point_preprocessor(pts.to(dev)).cpu()
+    heights = instant_ngp.append_heights
+    monkeypatch.setattr(instant_ngp, "append_heights",
+                        lambda pts, *a: heights(pts.to(dev), *a).to(pts.device))
+    with torch.no_grad():
+        a = pipe(batch)
+        b = cpu({k: v.cpu() for k, v in batch.items()})
+    bad = torch.zeros(250, dtype=torch.bool)
+    for k in ("color_map_fine", "color_surf", "z_vals_fine"):
+        err = (a[k].cpu() - b[k]).abs() > 1e-4 * b[k].abs() + 1e-6 * b[k].abs().max()
+        bad |= err.reshape(250, -1).any(dim=1)
+    assert int(bad.sum()) <= 1, int(bad.sum())
+    pipe.compute_dtype = torch.bfloat16
+    before = _launches()
+    losses = [trainer.step(torch.arange(250, device=dev)) for _ in range(2)]
+    assert _moved(before) == ({("bf16", 2): 2}, {2: 2})
+    assert all(bool(torch.isfinite(x)) for x in losses)
+
+
+def test_nerf_on_the_card(dev, tmp_path, monkeypatch):
+    """A small ``configs/nerf.json`` (8 + 16 samples, 32 wide) on the card:
+    no K1 or K2 launch; a deterministic render equal to the CPU's (one
+    preprocessor) to rtol 1e-4 plus 1e-6 of each output's largest value on
+    all but 1% of 250 rays, as ``chip_smoke.py`` holds it: the coarse pass
+    and the fine depths independently, the fine pass at the
+    card's fine samples (they invert the CDF of coarse weights whose last
+    bits the two devices' GEMMs round differently, and an encoding at 2^13
+    pi turns that into another color); four train steps with finite
+    losses, a checkpoint and ``extract``."""
+    from atmonr_tpu_torch import load_config
+
+    config = load_config("configs/nerf.json")
+    config["pipeline"].update(sampler={"N_c": 8, "N_f": 16}, mlp_hidden_dim=32)
+    tcfg = dict(config["trainer"], batch_size=250, num_iters=4, print_frequency=2)
+    ds = get_dataset(config["dataset"], "synthetic:16x8x2", device=dev)
+    pipe = get_pipeline(config["pipeline"], ds, device=dev)
+    cpu = get_pipeline(config["pipeline"], ds, device="cpu")
+    cpu.load_state_dict(pipe.state_dict())
+    cpu.point_preprocessor = lambda pts: pipe.point_preprocessor(pts.to(dev)).cpu()
+    batch = {k: v[:250] for k, v in ds.rays(dev).items()}
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    before = _launches()
+    card_samples = []
+
+    def record(*args, **kwargs):
+        card_samples.append(sample_pdf(*args, **kwargs))
+        return card_samples[-1]
+
+    sample_pdf = nerf.sample_pdf
+    with torch.no_grad():
+        monkeypatch.setattr(nerf, "sample_pdf", record)
+        a = pipe(batch)
+        monkeypatch.setattr(nerf, "sample_pdf", sample_pdf)
+        b = cpu(batch_cpu)
+        monkeypatch.setattr(nerf, "sample_pdf", lambda *_a, **_k: tuple(
+            t.cpu() for t in card_samples[0]))
+        shared = cpu(batch_cpu)
+        monkeypatch.setattr(nerf, "sample_pdf", sample_pdf)
+
+    def bad_rays(got, want):
+        err = (got.cpu() - want).abs() > 1e-4 * want.abs() + 1e-6 * want.abs().max()
+        return int(err.reshape(250, -1).any(dim=1).sum())
+
+    for k in ("color_map_coarse", "weights_coarse", "sigma_coarse", "z_vals_fine"):
+        assert bad_rays(a[k], b[k]) <= 2, k
+    for k in ("color_map_fine", "weights_fine", "sigma_fine"):
+        assert bad_rays(a[k], shared[k]) <= 2, k
+    trainer = Trainer(tcfg, ds, pipe, "nerf", tmp_path, device=dev)
+    trainer.train(tmp_path / "out")
+    assert trainer.iter_count == 4 and bool(torch.isfinite(trainer.last_loss))
+    sigma = pipe.extract(torch.rand((1000, 3), device=dev) * 2 - 1)
+    assert sigma.shape == (1000, 4) and sigma.is_cuda and float(sigma.min()) >= 0
+    assert _moved(before) == ({}, {})

@@ -355,8 +355,108 @@ def test_missing_fwd_mode_is_auto():
 
 
 def test_pair_bucket_hash_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thg.HashGridConfig.from_options(dict(SMALL, fwd_mode="q8", hashed_tile="on"), 3)
+    """A pair-bucket grid (``hashed_tile: "on"``) builds and, under
+    ``fwd_mode`` auto, resolves to the exact gather over the bf16 table;
+    what raises is a value the JAX package does not know, and a grid whose
+    levels cannot hold one 64-entry bucket."""
+    tc = thg.HashGridConfig.from_options(dict(SMALL, hashed_tile="on"), 3)
+    jc = jhg.HashGridConfig.from_options(dict(SMALL, hashed_tile="on"), 3)
+    assert tc.hashed_tile == jc.hashed_tile == "on"
+    assert thg.resolve_fwd_mode(tc) == "xla_bf16"
+    with pytest.raises(ValueError, match="hashed_tile"):
+        thg.HashGridConfig.from_options(dict(SMALL, hashed_tile="auto"), 3)
+    tiny = thg.HashGridConfig.from_options(dict(SMALL, log2_hashmap_size=5, hashed_tile="on"), 3)
+    level = next(lv for lv in range(tiny.n_levels) if not tiny.level_is_dense(lv))
+    with pytest.raises(ValueError, match="64-entry"):
+        thg.level_indices(torch.rand(4, 3), tiny, level)
+
+
+# the pair-bucket grids: the small one (2 of 4 levels hashed) and the
+# _pb configs' encoding with its tables cut to 2^12 (11 of 16 hashed)
+PAIR_BUCKET = {
+    "small": dict(SMALL, hashed_tile="on"),
+    "pb_config": dict(FLAGSHIP, log2_hashmap_size=12, hashed_tile="on"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIR_BUCKET))
+@pytest.mark.parametrize("n_dims", [2, 3])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.2, 1.2)], ids=["unit", "beyond"])
+def test_pair_bucket_level_indices_match_jax(name, n_dims, lo, hi):
+    """``_use_hashed_tiles`` level by level (3-D hashed levels only), and the
+    window-hash indices and weights of ``level_indices``, equal JAX's."""
+    jc, tc = _cfgs(PAIR_BUCKET[name], n_dims, "auto")
+    x = _points(400, n_dims, 40, lo, hi)
+    tiled = [thg._use_hashed_tiles(tc, lv) for lv in range(tc.n_levels)]
+    assert tiled == [jhg._use_hashed_tiles(jc, lv) for lv in range(jc.n_levels)]
+    assert any(tiled) == (n_dims == 3)
+    for level in range(tc.n_levels):
+        j_idx, j_w = jhg.level_indices(jnp.asarray(x), jc, level)
+        t_idx, t_w = thg.level_indices(torch.from_numpy(x), tc, level)
+        np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx), err_msg=str(level))
+        np.testing.assert_array_equal(t_w.numpy(), np.asarray(j_w), err_msg=str(level))
+        assert int(t_idx.max()) < tc.level_sizes[level]
+
+
+@pytest.mark.parametrize("name", sorted(PAIR_BUCKET))
+@pytest.mark.parametrize("mode", ["xla", "auto"])
+def test_pair_bucket_encode_and_gradient_match_jax(name, mode):
+    """``hash_encode`` of a 3-D pair-bucket grid against JAX's, which on the
+    CPU takes ``_hashed_tiled_level`` (one bucket row per point and level,
+    separable contractions) for the hashed levels: within 1e-6 of max|out|
+    (float32 sums in another order). ``"auto"`` is the exact gather over the
+    bf16-rounded table, as JAX's TPU dispatch computes it for these grids.
+    The table gradient against ``jax.grad`` (JAX's sorted VJP over the same
+    window indices): within 1e-6 of its largest value."""
+    jc, tc = _cfgs(PAIR_BUCKET[name], 3, mode)
+    table = _table(jc, 41) * 1e3
+    x = _points(300, 3, 42)
+    g = _cotangent(300, jc, 43)
+    jtable = table
+    if mode == "auto":
+        jtable = np.asarray(jnp.asarray(table).astype(jnp.bfloat16).astype(jnp.float32))
+    jx = jc if mode == "xla" else jhg.HashGridConfig.from_options(
+        dict(PAIR_BUCKET[name], fwd_mode="xla"), 3)
+    want = np.asarray(jhg.hash_encode(jnp.asarray(jtable), jnp.asarray(x), jx))
+    t_t = torch.from_numpy(table).requires_grad_()
+    got = thg.hash_encode(t_t, torch.from_numpy(x), tc)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    (t_dt,) = torch.autograd.grad(got, t_t, torch.from_numpy(g))
+
+    def f(t):
+        return jnp.sum(jhg.hash_encode(t, jnp.asarray(x), jx) * jnp.asarray(g))
+
+    j_dt = np.asarray(jax.grad(f)(jnp.asarray(jtable)))
+    assert np.abs(j_dt).max() > 0
+    np.testing.assert_allclose(t_dt.numpy(), j_dt, rtol=0, atol=1e-6 * np.abs(j_dt).max())
+
+
+@pytest.mark.parametrize("mode", thg.FWD_MODES)
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_resolve_fwd_mode_of_a_pair_bucket_grid(mode, n_dims):
+    """JAX's ``_fwd_dispatch`` keeps ``hashed_tile`` grids out of Pallas: auto
+    and bf16 read the bf16 table with the XLA gather, every other mode the
+    f32 table."""
+    opts = dict(PAIR_BUCKET["pb_config"], fwd_mode=mode)
+    jc = jhg.HashGridConfig.from_options(opts, n_dims)
+    got = thg.resolve_fwd_mode(thg.HashGridConfig.from_options(opts, n_dims))
+    assert got == ("xla_bf16" if mode in ("auto", "bf16") else "xla")
+    assert {"xla": "f32", "xla_bf16": "bf16"}[got] == _jax_tpu_dispatch_class(jc)
+
+
+def test_kernels_refuse_a_pair_bucket_grid():
+    """K1 and K2 index per cell; on a pair-bucket grid that would be another
+    model, so both wrappers raise (before any device dispatch)."""
+    tc = thg.HashGridConfig.from_options(dict(PAIR_BUCKET["small"], fwd_mode="bf16"), 3)
+    x = torch.rand(16, 3)
+    table = torch.zeros((tc.total_params, 2))
+    with pytest.raises(ValueError, match="hashed_tile"):
+        thgo.hash_gather(table.to(torch.bfloat16), None, x, tc)
+    with pytest.raises(ValueError, match="hashed_tile"):
+        thgo.hash_encode_kernel(table, x, tc, "bf16")
+    with pytest.raises(ValueError, match="hashed_tile"):
+        thbo.hash_bwd(x, torch.zeros((16, tc.n_output_dims)), tc)
 
 
 # -- the bf16, f32 and f8 table types ----------------------------------------------
@@ -569,7 +669,7 @@ def _jax_tpu_dispatch_class(jc):
     if jc.fwd_mode == "xla":
         return "f32"
     mode = "bf16" if jc.fwd_mode == "auto" else jc.fwd_mode
-    if jhgp.supported(jc, mode):
+    if jc.hashed_tile != "on" and jhgp.supported(jc, mode):
         return mode
     return "bf16" if mode == "bf16" else "f32"
 

@@ -101,9 +101,17 @@ def test_composite_sh_identity():
 
 
 def test_frequency_encoding_waits_for_nerf():
-    specs = tenc.parse_encoding_config({"otype": "Frequency", "n_frequencies": 4})
-    with pytest.raises(NotImplementedError, match="NeRF"):
-        tenc.composite_output_dim(specs, 3)
+    """The ``Frequency`` encoding is ported: its output width is JAX's (2
+    sin/cos channels per frequency and dim), alone and in a composite, and
+    ``apply_composite`` gives that many channels."""
+    for cfg, n_in in (({"otype": "Frequency", "n_frequencies": 4}, 3),
+                      ({"otype": "Composite", "nested": [
+                          {"otype": "Frequency", "n_frequencies": 6, "n_dims_to_encode": 2},
+                          {"otype": "Identity"}]}, 5)):
+        tspecs, jspecs = tenc.parse_encoding_config(cfg), jenc.parse_encoding_config(cfg)
+        width = tenc.composite_output_dim(tspecs, n_in)
+        assert width == jenc.composite_output_dim(jspecs, n_in)
+        assert tenc.apply_composite({}, tspecs, torch.rand(7, n_in)).shape == (7, width)
 
 
 @pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])

@@ -334,18 +334,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_nerf_and_uniform_sampler_wait():
-    """The NeRF pipeline and ``include_height`` still wait; the uniform
-    sampler (a config without ``occupancy``) no longer does."""
+    """Nothing waits any more: ``configs/nerf.json`` builds a NeRF pipeline,
+    a config without ``occupancy`` builds an Instant-NGP pipeline with the
+    uniform sampler, and ``include_height`` with it a 4-D position grid;
+    ``include_height`` beside an occupancy grid is refused, as the JAX
+    package refuses it, and so is an unknown pipeline type."""
     config = _config("q8")
     ds = get_dataset(config["dataset"], SCENE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pipeline(dict(config["pipeline"], type="NeRF"), ds, device="cpu")
-    tall = dict(config["pipeline"], include_height=True, point_preprocessor=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pipeline(tall, ds, device="cpu")
+    nerf = atmonr_tpu_torch.load_config("configs/nerf.json")["pipeline"]
+    assert isinstance(get_pipeline(nerf, ds, device="cpu"), atmonr_tpu_torch.NeRFPipeline)
     no_occ = {k: v for k, v in config["pipeline"].items() if k != "occupancy"}
     pipe = get_pipeline(no_occ, ds, device="cpu")
     assert pipe.occ_cfg is None and "occ" not in pipe.state_dict()
+    tall = dict(no_occ, include_height=True, point_preprocessor=None)
+    assert get_pipeline(tall, ds, device="cpu").pos_cfg.n_dims == 4
+    with pytest.raises(ValueError, match="include_height"):
+        get_pipeline(dict(tall, occupancy=config["pipeline"]["occupancy"]), ds, device="cpu")
+    with pytest.raises(NotImplementedError, match="known types"):
+        get_pipeline(dict(nerf, type="Mip-NeRF"), ds, device="cpu")
 
 
 def test_load_config_matches_jax():
@@ -366,11 +372,12 @@ def test_import_leaves_jax_out():
         "import atmonr_tpu_torch.data.batching, atmonr_tpu_torch.scripts.train\n"
         "import atmonr_tpu_torch.training.trainer, atmonr_tpu_torch.training.optim\n"
         "import atmonr_tpu_torch.training.schedules, atmonr_tpu_torch.training.metrics\n"
-        "import atmonr_tpu_torch.training.checkpoint\n"
+        "import atmonr_tpu_torch.training.checkpoint, atmonr_tpu_torch.pipelines.nerf\n"
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'atmonr_tpu')\n"
         "       or m.startswith(('jax.', 'optax.', 'atmonr_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert 'atmonr_tpu_torch.ops.hash_gather' in sys.modules\n"
         "assert 'atmonr_tpu_torch.training.trainer' in sys.modules\n"
+        "assert 'atmonr_tpu_torch.pipelines.nerf' in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
