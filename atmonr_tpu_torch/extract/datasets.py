@@ -3,9 +3,10 @@ extinction field is queried, and how each grid is written out.
 
 The counterpart of the JAX package's ``extract/datasets.py``, over the
 port's own ``HARP2Dataset``. Every grid is built on the host in float64
-numpy (meter-accurate geodesy from ``atmonr_tpu_torch.geo``); the batched
-query on the card is ``atmonr_tpu_torch.extract.runner``. Four coordinate
-modes:
+(meter-accurate geodesy from ``atmonr_tpu_torch.geo`` in numpy; the global
+grid's voxel walk in the host library, ``atmonr_tpu_torch.native``); the
+batched query on the card is ``atmonr_tpu_torch.extract.runner``. Four
+coordinate modes:
 
 - ``l1c``: the horizontal grid of the matching HARP2 L1C product;
 - ``voxelgrid``: a near-uniform geodesic grid marched with Vincenty's
@@ -22,11 +23,13 @@ from __future__ import annotations
 
 import warnings
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
+from atmonr_tpu_torch import native
 from atmonr_tpu_torch.data.harp2 import HARP2Dataset
-from atmonr_tpu_torch.extract.voxel_traversal import voxel_traversal
+from atmonr_tpu_torch.extract.voxel_traversal import voxel_traversal_numpy
 from atmonr_tpu_torch.extract.writers import (
     earthcare_to_netcdf,
     extract_to_netcdf,
@@ -347,8 +350,16 @@ def _voxel_keys(vox: np.ndarray, lo: np.ndarray, width: np.ndarray) -> np.ndarra
     radix ``width``."""
     rel = vox.astype(np.int64) - lo
     if np.any(rel < 0) or np.any(rel >= width):
-        raise ValueError("a traversed voxel lies outside the rays' bounding box")
+        raise ValueError(native.OUTSIDE_BOX)
     return (rel[:, 0] * width[1] + rel[:, 1]) * width[2] + rel[:, 2]
+
+
+def walk_keys_numpy(u: np.ndarray, end: np.ndarray, lo: np.ndarray,
+                    width: np.ndarray) -> np.ndarray:
+    """The plain version of ``native.voxel_keys``: the numpy walk, then
+    ``_voxel_keys`` of its rows (the same set of keys; the numpy walk lists
+    the start voxels once each, first)."""
+    return _voxel_keys(voxel_traversal_numpy(u, end, unique_only=False), lo, width)
 
 
 class HARP2GlobalGridExtractDataset(HARP2ExtractDataset):
@@ -358,11 +369,14 @@ class HARP2GlobalGridExtractDataset(HARP2ExtractDataset):
     layer, then the stretch undone and points outside the atmosphere
     culled: ``(alt <= 0) | (alt > ray_origin_height)``.
 
-    The same voxels, points and order as the JAX package's grid. Each voxel
-    row is one int64 key while the chunks merge, and the layers are cropped
-    in one pass over the points sorted by layer, where the JAX package sorts
-    float rows (``np.unique(axis=0)``) and loops over the layers: on one CPU
-    host, at a granule of 64,203 rays, 7.7 s against its 46 s."""
+    The same voxels, points and order as the JAX package's grid. The host
+    library walks each chunk and writes each voxel's int64 key, checked
+    against the rays' bounding box (``native.voxel_keys``; ``walk_keys``
+    takes another walk of the same signature, such as
+    ``walk_keys_numpy``), and the keys merge into one sorted set; the layers
+    are cropped in one pass over the points sorted by layer, where the JAX
+    package sorts float rows (``np.unique(axis=0)``) and loops over the
+    layers."""
 
     def __init__(
         self,
@@ -371,6 +385,7 @@ class HARP2GlobalGridExtractDataset(HARP2ExtractDataset):
         grid_res: float,
         vstretch: float | None = None,
         lon_crop: float = 0.05,
+        walk_keys: Callable[..., np.ndarray] = native.voxel_keys,
         **_: object,
     ) -> None:
         super().__init__(dataset)
@@ -404,8 +419,8 @@ class HARP2GlobalGridExtractDataset(HARP2ExtractDataset):
             end = min(n, start + _CHUNK_SIZE)
             if start == end:
                 continue
-            vox = voxel_traversal(ray_origin[start:end], ray_dest[start:end], unique_only=False)
-            keys = np.union1d(keys, _voxel_keys(vox, lo, width))
+            keys = np.union1d(keys, walk_keys(ray_origin[start:end], ray_dest[start:end],
+                                              lo, width))
         rows = np.stack(
             [keys // (width[1] * width[2]), keys // width[2] % width[1], keys % width[2]],
             axis=1,

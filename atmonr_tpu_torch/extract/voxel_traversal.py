@@ -1,17 +1,41 @@
-"""Batched Amanatides-Woo voxel traversal on the host (numpy): a copy of
-the numpy path of the JAX package's ``extract/voxel_traversal.py``. The
-data-dependent walk runs once per extraction, as grid preparation. (The JAX
-package can take a native C++ walk instead; the port's copy of that library
-is not written yet, and the numpy path keeps its ``unique_only``
-contract.)"""
+"""Batched Amanatides-Woo voxel traversal on the host, the counterpart of
+the JAX package's ``extract/voxel_traversal.py``. The data-dependent walk
+runs once per extraction, as grid preparation: 3-D segments go through the
+port's host library (``atmonr_tpu_torch.native``, OpenMP), 2-D ones through
+the numpy walk, as in the JAX package. ``voxel_traversal_numpy`` is the
+numpy walk for any D, the plain version the tests hold the library to."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from atmonr_tpu_torch import native
+
 
 def voxel_traversal(u: np.ndarray, end: np.ndarray, unique_only: bool = True) -> np.ndarray:
     """All voxels crossed by the segments from ``u`` to ``end`` (unit voxels).
+
+    Args:
+        u: (N, D) start points in continuous voxel coordinates.
+        end: (N, D) end points.
+        unique_only: de-duplicate the returned voxels (sorted rows).
+
+    Returns:
+        (K, D) int32 voxel indices: with ``unique_only`` the sorted unique
+        rows; else, for D = 3, every segment's voxels in walk order, segment
+        after segment (``voxel_traversal_numpy``'s order for D = 2).
+    """
+    if u.shape != end.shape or u.ndim != 2:
+        raise ValueError(f"start {u.shape} and end {end.shape} must be the same (N, D)")
+    if u.shape[1] != 3:
+        return voxel_traversal_numpy(u, end, unique_only)
+    out, _ = native.voxel_traversal(u, end)
+    return np.unique(out, axis=0) if unique_only else out
+
+
+def voxel_traversal_numpy(u: np.ndarray, end: np.ndarray, unique_only: bool = True) -> np.ndarray:
+    """All voxels crossed by the segments from ``u`` to ``end`` (unit
+    voxels), by the numpy walk: all segments step together.
 
     Args:
         u: (N, D) start points in continuous voxel coordinates.

@@ -1,8 +1,8 @@
 """Training runtime: one step covering gather -> draws -> forward -> loss ->
 backward -> clip -> AdamW -> progress-pixel scatter, the occupancy-grid
-refresh on its cadence, and the host-side epoch loop for metrics, logging,
-checkpointing and profiling. Counterpart of the JAX package's
-``training/trainer.py``, on one device.
+refresh on its cadence, and the host-side epoch loop for metrics, the RGB
+comparison image, logging, asynchronous checkpoints and profiling.
+Counterpart of the JAX package's ``training/trainer.py``, on one device.
 
 Nothing in a step waits for the device: the batch is gathered from the
 device-resident ray set, the random draws come from generators that live on
@@ -36,6 +36,8 @@ from atmonr_tpu_torch.training.metrics import image_metrics
 from atmonr_tpu_torch.training.schedules import make_lr_schedule
 from atmonr_tpu_torch.utils.device import resolve_device
 
+# the color maps whose prediction in each ray's own band the step keeps
+_PROGRESS_MAPS = ("color_map_fine", "color_map_surf", "color_map_atmo")
 MULTI_DEVICE_NOT_PORTED = (
     "multi-device and multi-granule training are not ported yet "
     "(ROADMAP.md queue 1, 'Multi-device')"
@@ -43,7 +45,8 @@ MULTI_DEVICE_NOT_PORTED = (
 
 
 class _ScalarLogger:
-    """JSONL always; TensorBoard too when its writer can be imported."""
+    """JSONL always; TensorBoard too when its writer can be imported (the
+    epoch images go to TensorBoard only)."""
 
     def __init__(self, log_dir: Path) -> None:
         log_dir.mkdir(parents=True, exist_ok=True)
@@ -61,6 +64,10 @@ class _ScalarLogger:
         )
         if self.tb is not None:
             self.tb.add_scalar(tag, value, step)
+
+    def image(self, tag: str, img_hwc: np.ndarray, step: int) -> None:
+        if self.tb is not None:
+            self.tb.add_image(tag, np.transpose(img_hwc, (2, 0, 1)), step)
 
     def flush(self) -> None:
         self.jsonl.flush()
@@ -135,8 +142,9 @@ class Trainer:
         self.print_frequency = int(config.get("print_frequency", 10))
         self.check_numerics = bool(config.get("check_numerics", False))
         # progress metrics: the per-band prediction gather and the pixel
-        # scatter of every step; "progress": false drops them and the epoch
-        # PSNR/SSIM (loss logging and checkpoints are unaffected)
+        # scatter of every step; "progress": false drops them, the epoch
+        # PSNR/SSIM and the RGB image (loss logging and checkpoints are
+        # unaffected)
         self.progress = bool(config.get("progress", True))
         # collapse guard: a run whose recent loss is still above the
         # threshold check_iter steps after its (re)start is re-initialised,
@@ -171,10 +179,12 @@ class Trainer:
             for i, name in enumerate(("init", "perm", "draws", "aux"))
         }
         self._init_model()
-        # each ray's latest predicted radiance, for the epoch's PSNR/SSIM (the
-        # JAX package also keeps the surface and atmosphere parts, for its
-        # TensorBoard imagery, which is not ported)
-        self.pred_pixels = torch.zeros((self.num_rays,), dtype=torch.float32, device=self.device)
+        # each ray's latest predicted radiance in its own band: the full
+        # render, its surface part and its atmosphere part (columns; the
+        # parts stay 0 for NeRF), for the epoch's PSNR/SSIM and RGB image
+        self.progress_pixels = torch.zeros(
+            (self.num_rays, len(_PROGRESS_MAPS)), dtype=torch.float32, device=self.device
+        )
         occ_cfg = getattr(pipeline, "occ_cfg", None)
         self.aux_update_every = int(occ_cfg.update_every) if occ_cfg is not None else 0
         self.epoch_idx = 0
@@ -187,6 +197,15 @@ class Trainer:
         now = datetime.now().strftime("%Y%m%d_%H%M%S")
         self.tensorboard_dir = Path(data_root) / "tensorboard" / f"{exp_name}_{now}"
         self.logger = _ScalarLogger(self.tensorboard_dir)
+        # per-epoch saves overlap the next epoch; iterate() waits for the
+        # last one before it returns
+        self.checkpointer = ckpt.AsyncCheckpointManager()
+
+    @property
+    def pred_pixels(self) -> torch.Tensor:
+        """Each ray's latest predicted radiance (a view of
+        ``progress_pixels``)."""
+        return self.progress_pixels[:, 0]
 
     def _init_model(self) -> None:
         """Draw the parameters from the init stream, reset the occupancy
@@ -284,9 +303,17 @@ class Trainer:
 
     @torch.no_grad()
     def _scatter_progress(self, batch, results) -> None:
-        irgb = batch["irgb_idx"][:, None].long()
-        pred = torch.gather(results["color_map_fine"], 1, irgb)[:, 0]
-        self.pred_pixels[batch["idx"]] = pred.float()
+        """The batch's predictions in their own bands into
+        ``progress_pixels``: the three color maps stacked, then one gather
+        and one index write."""
+        irgb = batch["irgb_idx"].long()
+        if _PROGRESS_MAPS[1] not in results:  # NeRF: no surface/atmosphere split
+            pred = torch.gather(results[_PROGRESS_MAPS[0]], 1, irgb[:, None])[:, 0]
+            self.progress_pixels[batch["idx"], 0] = pred.float()
+            return
+        maps = torch.stack([results[k] for k in _PROGRESS_MAPS], dim=-1)
+        pred = torch.gather(maps, 1, irgb[:, None, None].expand(-1, 1, maps.shape[-1]))[:, 0]
+        self.progress_pixels[batch["idx"]] = pred.float()
 
     def _raise_if_not_finite(self, loss: torch.Tensor) -> None:
         """``check_numerics``: one host synchronisation per step."""
@@ -403,6 +430,7 @@ class Trainer:
                     "resume with --resume"
                 )
                 break
+        self.checkpointer.wait()  # the last epoch's save must have landed
         self.logger.flush()
         print()
 
@@ -410,20 +438,33 @@ class Trainer:
         line = f"Epoch {self.epoch_idx}/{self.num_epochs}"
         if self.progress:
             ds = self.dataset
-            pred_img = ds.scatter_image(self.pred_pixels.cpu().numpy())
+            pixels = self.progress_pixels.cpu().numpy()
+            pred_img = ds.scatter_image(pixels[:, 0])
             metrics = image_metrics(pred_img, ds.target_image(), ds.max_i)
             for name, val in metrics.items():
                 if isinstance(val, list):
                     continue
                 line += f" | {name}: {val:.3f}"
                 self.logger.scalar(name, val, self.epoch_idx)
+            self.logger.image(f"Epoch {self.epoch_idx}", self.epoch_image(pixels), self.epoch_idx)
         print(line + max(0, last_len - len(line)) * " ")
         self.logger.flush()
 
+    def epoch_image(self, pixels: np.ndarray | None = None) -> np.ndarray:
+        """The side-by-side RGB comparison, surface | atmosphere | full |
+        target, each the dataset's RGB view in [0, 1]: an (H, 4 W, 3) array.
+        ``pixels`` is ``progress_pixels`` on the host, fetched if not given."""
+        ds = self.dataset
+        if pixels is None:
+            pixels = self.progress_pixels.cpu().numpy()
+        cubes = [ds.scatter_image(pixels[:, i]) for i in (1, 2, 0)] + [ds.target_image()]
+        return np.concatenate([ds.get_rgb(c.transpose(2, 0, 1)) for c in cubes], axis=1)
+
     # -- checkpointing -------------------------------------------------------------
 
-    def save(self, output_path: str | Path, epoch: int) -> None:
-        state: dict[str, Any] = {
+    def checkpoint_state(self) -> dict[str, Any]:
+        """What a checkpoint holds: live tensors (state dicts), not copies."""
+        return {
             # parameters and the occupancy grid
             "pipeline": self.pipeline.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -434,10 +475,16 @@ class Trainer:
             "restart_base": self._restart_base,
             "tensorboard_dir": str(self.tensorboard_dir),
         }
-        ckpt.save_checkpoint(output_path, epoch, state)
+
+    def save(self, output_path: str | Path, epoch: int) -> None:
+        """Save a checkpoint asynchronously (``checkpointer.wait()`` blocks
+        until it has landed)."""
+        self.checkpointer.save(output_path, epoch, self.checkpoint_state())
 
     def load(self, output_path: str | Path) -> None:
-        """Restore the latest checkpoint under ``output_path``."""
+        """Restore the latest checkpoint under ``output_path`` (after any
+        save in flight has landed: it may be the latest)."""
+        self.checkpointer.wait()
         state, _ = ckpt.restore_checkpoint(output_path)
         self.pipeline.load_state_dict(state["pipeline"])
         self.optimizer.load_state_dict(state["optimizer"])

@@ -10,8 +10,10 @@ Phases, each of which raises on failure:
 1. Device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them.
 2. Build: compiles every CUDA kernel of the port from ``atmonr_tpu_torch/csrc``
-   (``nvcc`` for sm_90a, into ``atmonr_tpu_torch/_build``) and prints the
-   build time and ``ptxas``'s register report.
+   (``nvcc`` for sm_90a, into ``atmonr_tpu_torch/_build``) and, at the same
+   time, the host library ``csrc/atmonr_native.cpp`` (``g++`` with OpenMP,
+   which builds the rays and walks the global grid's voxels); prints the
+   build times, ``ptxas``'s register report and OpenMP's thread count.
 3. Kernels, each against its plain PyTorch version on the card at the
    flagship's shapes (3-D pos grid at M = 196,608; 2-D surface grid at
    M = 8,192), timed (CUDA-graph replay; per call with the host launch)
@@ -38,9 +40,12 @@ Phases, each of which raises on failure:
    rays, in 32,768-point batches.
 6. Train: ``Trainer`` on the same config and granule at full width, 8,192
    rays per step, 192 steps (past ``restart_on_plateau.check_iter`` = 150,
-   12 occupancy refreshes, epoch ends with metrics and checkpoints). Checks
-   that every loss is finite, that the loss fell, and that K1 and K2 ran
-   once per grid per step (K1 once more per refresh). Then times 16-step
+   12 occupancy refreshes, epoch ends with metrics, the RGB comparison image
+   and asynchronous checkpoints). Checks that every loss is finite, that the
+   loss fell, that the epoch image (surface | atmosphere | full | target)
+   equals the one assembled on the host from the three progress buffers, and
+   that K1 and K2 ran once per grid per step (K1 once more per refresh).
+   Then times 16-step
    blocks of steady steps, profiles one step, holds K2 to its plain
    version on one forward's own sample points (<= 1e-4 * max|dW|: they
    cluster, and a row sums tens of thousands of terms in two orders; the
@@ -56,7 +61,9 @@ Phases, each of which raises on failure:
    zero heights with a warning) through ``get_extract_dataset`` and
    ``run_extraction``, ``globalgrid`` through the whole extract CLI
    (``main``) at its defaults, which writes the ``.npy`` pair (no OpenVDB
-   here). Each ``[extract <grid>]`` line gives the points, the host seconds
+   here); the global grid is built once more with the numpy walk, timed
+   beside the CLI's (the host library's walk writing int64 keys) and equal
+   to it. Each ``[extract <grid>]`` line gives the points, the host seconds
    of the grid build, points/s over the whole ``run_extraction`` (both
    copies included), K1's launches against ceil(N / 32,768) (a count that
    differs raises) and peak device memory; each ``[compare] extract
@@ -82,8 +89,12 @@ Phases, each of which raises on failure:
    C ``instant_ngp_tpu.json`` (uniform sampler, 1,048,576 points per step):
    16 steps.
    D ``instant_ngp_occ21.json`` (2^21-entry pos table, 2^19 surface table):
-   a refresh, a forward, 32 steps, the loss falls; K2 at the 169 MB
-   gradient table on one forward's own points. Then ``instant_ngp.json``
+   the dataset's set-up with the host library's ray builder and with the
+   numpy one (rays within 25 m; every phase uses the library's), a refresh,
+   a forward, 32 steps, the loss falls; a synchronous and two asynchronous
+   checkpoints of the 0.5 GB state, timed, with steps during the writes, each
+   reloaded equal to the state at its save; K2 at the 169 MB gradient table
+   on one forward's own points. Then ``instant_ngp.json``
    (uniform, 1,024 samples, ``micro_batch_size`` 1,024): 2 steps of 8
    micro-batches, one optimizer update each.
    f32 and f8: the flagship config with both grids' ``fwd_mode`` set to
@@ -293,17 +304,32 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from atmonr_tpu_torch import _build
+    """The CUDA kernels (one nvcc each) and the host library (g++), all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from atmonr_tpu_torch import _build, native
+
+    def build_host():
+        t0 = time.perf_counter()
+        path, report = _build.build_host("atmonr_native")
+        return path, report, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    built = _build.build_all(("hash_gather", "hash_bwd"), verbose=True)
-    log(f"[build] {len(built)} libraries, one nvcc each, together in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(build_host)
+        built = _build.build_all(("hash_gather", "hash_bwd"), verbose=True)
+        host_path, host_report, host_s = host.result()
+    log(f"[build] {len(built)} CUDA libraries, one nvcc each, and the host library, all "
+        f"together in {time.perf_counter() - t0:.2f} s")
     for path, report in built.values():
         log(f"[build] {path.name}")
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {line.strip()}")
+    log(f"[build] {host_path.name}: g++ {' '.join(_build.GXX_FLAGS)} in {host_s:.2f} s"
+        f"{' (warnings: ' + host_report.strip() + ')' if host_report.strip() else ''}; "
+        f"OpenMP threads {native.num_threads()} of {torch.get_num_threads()} torch host threads")
 
 
 def check_k2(x: torch.Tensor, g: torch.Tensor, cfg, tol: float, what: str) -> dict:
@@ -720,6 +746,7 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
         f"{peak_mib:.0f} MiB")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
+    check_epoch_image(trainer)
     want = step_counts("q8", TRAIN_STEPS, k1_d3_extra=TRAIN_STEPS // every)
     if launched(counts) != want:
         raise RuntimeError(f"launches on the training path: {show(counts)}, expected {show(want)}")
@@ -814,6 +841,34 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
     return counts
 
 
+def check_epoch_image(trainer) -> None:
+    """The epoch's RGB comparison after training, surface | atmosphere |
+    full | target: the JAX Trainer's layout, equal to the image assembled
+    here on the host from the same three progress buffers."""
+    ds = trainer.dataset
+    pix = trainer.progress_pixels.cpu().numpy()
+    img = trainer.epoch_image()
+    h, w = ds.img_shp
+    nv = ds.view_idx.shape[0]
+
+    def rgb(values: np.ndarray) -> np.ndarray:
+        flat = np.zeros(h * w * nv, np.float32)
+        flat[ds.ray_filter] = values
+        return np.clip(flat.reshape(h, w, nv)[:, :, ds.best_rgb_idx] / ds.max_i, 0, 1)
+
+    want = np.concatenate([rgb(pix[:, 1]), rgb(pix[:, 2]), rgb(pix[:, 0]), rgb(ds.ray_rad)],
+                          axis=1)
+    written = [int(np.count_nonzero(pix[:, i])) for i in range(3)]
+    log(f"[train] epoch image (surface | atmosphere | full | target) {img.shape} {img.dtype} "
+        f"of views {ds.best_rgb_idx}, in [{float(img.min()):.3g}, {float(img.max()):.3g}]; "
+        f"non-zero progress pixels (full, surface, atmosphere) {written} of {len(pix)}")
+    if img.shape != (h, 4 * w, 3) or not np.array_equal(img, want):
+        raise RuntimeError("the epoch image is not the host's surface | atmosphere | full | "
+                           "target of the progress buffers")
+    if min(written) == 0:
+        raise RuntimeError("a progress buffer was never written")
+
+
 def save_experiment(ctx: dict, root: str) -> Path:
     """The trained flagship as ``python -m atmonr_tpu_torch.scripts.train``
     leaves an experiment: ``args.json`` and ``config.json`` (written by its
@@ -826,6 +881,7 @@ def save_experiment(ctx: dict, root: str) -> Path:
         "--data-root", root, "--num-iters", str(TRAIN_STEPS)])
     out = train_cli.setup_dir(args, ctx["train_config"])
     ctx["trainer"].save(out, ctx["trainer"].epoch_idx)
+    ctx["trainer"].checkpointer.wait()
     return out
 
 
@@ -883,6 +939,26 @@ def check_extract(tag: str, grid, sigma: np.ndarray, counts: dict, build_s: floa
         f"run_extraction (both copies included) {query_s:.3f} s = {n / query_s:.0f} points/s; "
         f"K1 launches {show(counts)} for ceil({n}/{EXTRACT_BATCH}) = {batches} batches; peak "
         f"device memory {peak_mib:.0f} MiB; sigma max {float(sigma.max()):.3g} m^-1; on {card}")
+
+
+def compare_global_walks(grid, args, ds, build_s: float, card: str) -> None:
+    """The global grid of the extract CLI (the host library's walk writing
+    int64 keys) against the same grid built with the numpy walk: equal
+    voxels and points in the same order, and the host seconds of both."""
+    from atmonr_tpu_torch.extract import datasets as xd
+
+    t0 = time.perf_counter()
+    plain = xd.HARP2GlobalGridExtractDataset(
+        ds, scale=args.scale, grid_res=args.grid_res, vstretch=args.vstretch,
+        lon_crop=args.lon_crop, walk_keys=xd.walk_keys_numpy)
+    plain_s = time.perf_counter() - t0
+    same = np.array_equal(plain.voxels, grid.voxels) and np.array_equal(plain.xyz, grid.xyz)
+    log(f"[extract globalgrid] host build of {len(grid)} points from {len(ds)} rays: "
+        f"{build_s:.2f} s with the host library's walk writing int64 keys (the CLI's), "
+        f"{plain_s:.2f} s with the numpy walk; the same voxels and points in the same order: "
+        f"{same}; on the host of {card}")
+    if not same:
+        raise RuntimeError("the numpy walk and the host library give other global grids")
 
 
 def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
@@ -982,9 +1058,11 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
         torch.cuda.reset_peak_memory_stats()
         # ---- the main path: counts reset just before, read just after ----
         reset_counts()
+        t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             run = extract_cli.main(argv)
+        cli_s = time.perf_counter() - t0
         paths[tag] = read_counts()
         # ---- end of the main path ----
         for w in caught:
@@ -995,8 +1073,10 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
         if vox.shape != (len(run.grid), 3) or not np.array_equal(sig, run.sigma):
             raise RuntimeError(f"{tag}: the .npy pair does not hold the grid's voxels and sigma")
         log(f"[{tag}] python -m atmonr_tpu_torch.scripts.extract {' '.join(argv)}: wrote "
-            f"{vox.shape[0]} voxels and their sigma as the .npy pair (no OpenVDB here)")
+            f"{vox.shape[0]} voxels and their sigma as the .npy pair (no OpenVDB here); the "
+            f"whole CLI (dataset, grid, restore, query, writing) {cli_s:.2f} s on {card}")
         compare_sigma(tag, run.grid.xyz, run.sigma, pipe, cpu)
+        compare_global_walks(run.grid, extract_cli.parse_args(argv), ds, run.build_s, card)
         del run
 
     # the orbit video's frames, on the card, of the l1c volume
@@ -1224,6 +1304,88 @@ def check_path_kernels(tag: str, pipe, batch: dict, rows: list[dict]) -> dict:
     return out
 
 
+def compare_ray_builders(config: dict, ds) -> None:
+    """The dataset's set-up on ``ds``'s granule with the host library's ray
+    builder (the default, which every phase uses) and with the numpy one:
+    host seconds of each, and their rays within the origin solve's 25 m
+    (each ray stops its solve on its own in the library) and 1e-5 in
+    direction."""
+    from atmonr_tpu_torch import native
+    from atmonr_tpu_torch.data.harp2 import HARP2Dataset
+    from atmonr_tpu_torch.geo import wgs84
+
+    times = {}
+    for name, builder in (("host library", None), ("numpy", wgs84.get_rays)):
+        t0 = time.perf_counter()
+        other = HARP2Dataset(config["dataset"], ds.granule, ray_builder=builder)
+        times[name] = time.perf_counter() - t0
+    if not np.array_equal(other.ray_filter, ds.ray_filter):
+        raise RuntimeError("the two ray builders keep other rays")
+    d_origin = float(np.abs(other.ray_origin - ds.ray_origin).max())
+    d_dir = float(np.abs(other.ray_dir - ds.ray_dir).max())
+    log(f"[D] set-up of {len(ds)} rays: {times['host library']:.2f} s with the host library's "
+        f"ray builder ({native.num_threads()} OpenMP threads), {times['numpy']:.2f} s with the "
+        f"numpy one; origins within {d_origin:.3g} m, directions within {d_dir:.3g}; every "
+        "phase runs on the host library's rays")
+    if not (d_origin <= 25.0 and d_dir <= 1e-5):
+        raise RuntimeError("the host library's rays differ from the numpy builder's")
+
+
+def _tensors(obj, path=()) -> dict:
+    """Every tensor of a nested checkpoint state, by its path, on the host."""
+    if isinstance(obj, torch.Tensor):
+        return {path: obj.detach().cpu().clone()}
+    items = obj.items() if isinstance(obj, dict) else (
+        enumerate(obj) if isinstance(obj, (list, tuple)) else ())
+    out = {}
+    for k, v in items:
+        out.update(_tensors(v, path + (k,)))
+    return out
+
+
+def time_checkpoints(tag: str, trainer, card: str) -> None:
+    """A synchronous save (``save_checkpoint``) against two asynchronous
+    ones (the Trainer's ``checkpointer``: the first allocates its pinned
+    buffers, the second reuses them), each after a synchronize as at an
+    epoch's end: how long each blocks the caller, the background write's
+    wall seconds, and the step time while a write is in flight against
+    after. Each asynchronous save is followed at once by steps that update
+    the state in place; every checkpoint reloads equal to the state at its
+    save."""
+    from atmonr_tpu_torch.training import checkpoint as ckpt
+
+    mgr = trainer.checkpointer
+    with tempfile.TemporaryDirectory() as root:
+        states, block_ms, write_s, during, after = {}, [], [], [], []
+        states[1] = _tensors(trainer.checkpoint_state())
+        n_bytes = sum(t.numel() * t.element_size() for t in states[1].values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(root, 1, trainer.checkpoint_state())
+        sync_ms = 1e3 * (time.perf_counter() - t0)
+        for epoch in (2, 3):
+            states[epoch] = _tensors(trainer.checkpoint_state())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(root, epoch, trainer.checkpoint_state())
+            block_ms.append(1e3 * (time.perf_counter() - t0))
+            during.append(steady_step_s(trainer, 1, 8)[0])
+            mgr.wait()
+            write_s.append(mgr.last_write_s)
+            after.append(steady_step_s(trainer, 1, 8)[0])
+        for epoch, want in states.items():
+            got = _tensors(ckpt.restore_checkpoint(root, epoch)[0])
+            if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want):
+                raise RuntimeError(f"[{tag}] checkpoint {epoch} is not the state at its save")
+    log(f"[{tag}] checkpoint of {n_bytes / 1e6:.1f} MB (parameters, grid, AdamW moments): "
+        f"synchronous save {sync_ms:.1f} ms; asynchronous save blocks {block_ms[0]:.1f} ms "
+        f"(allocating its pinned buffers), then {block_ms[1]:.1f} ms, its background write "
+        f"{write_s[0]:.2f} s, {write_s[1]:.2f} s; 8 steps while the write runs "
+        f"{1e3 * during[0]:.2f}, {1e3 * during[1]:.2f} ms a step, after it "
+        f"{1e3 * after[0]:.2f}, {1e3 * after[1]:.2f}; each checkpoint reloads equal to the "
+        f"state at its save, bit for bit; on {card}")
+
+
 def phase_configs(flagship: dict, card: str, rows: list[dict]) -> dict:
     """Phase 7: the other configurations. Returns the launch counts of each
     path's window, by path name."""
@@ -1261,8 +1423,10 @@ def phase_configs(flagship: dict, card: str, rows: list[dict]) -> dict:
     config = load_config(CONFIGS / "instant_ngp_occ21.json")
     big = get_dataset(config["dataset"], SCENE_BIG)
     log(f"[D] {SCENE_BIG}: {len(big)} rays in {time.perf_counter() - t0:.2f} s (set-up)")
+    compare_ray_builders(config, big)
     d = run_config("D occ21", config, big, card, steps=32, refresh=True, n_forwards=1,
                    must_fall=True, steady=(2, BLOCK))
+    time_checkpoints("D occ21", d["trainer"], card)
     own = check_path_kernels("D occ21", d["pipe"], d["batch"], rows)["pos", "K2"]
     row = next(r for r in rows if r["key"] == ("K2", None, 3))
     row.update(ms_2p21_table=own["ms"], plain_ms_2p21_table=own["plain_ms"],

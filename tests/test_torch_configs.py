@@ -42,7 +42,15 @@ from atmonr_tpu_torch.ops import samplers as tsamp
 from atmonr_tpu_torch.pipelines import instant_ngp as tngp
 from atmonr_tpu_torch.training import checkpoint as tckpt
 from test_torch_nerf import _host_heights, _shared
-from test_torch_pipeline import N_RAYS, SCENE, _bad_rays, _config, _jax_dataset, _share_preprocessor
+from test_torch_pipeline import (
+    N_RAYS,
+    SCENE,
+    _bad_rays,
+    _config,
+    _jax_dataset,
+    _port_dataset,
+    _share_preprocessor,
+)
 from test_torch_train import (
     _adam_state,
     _batches,
@@ -120,7 +128,7 @@ def pair(request):
         params = jpipe.init_params(jax.random.PRNGKey(0))
         if sampler == "importance":
             params["pos_table"] = params["pos_table"] * IMPORTANCE_TABLE_BOOST
-        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tds = _port_dataset(config["dataset"])
         tpipe = get_pipeline(copy.deepcopy(config["pipeline"]), tds, device="cpu")
         tpipe.compute_dtype = torch.float32
         tpipe.load_params(convert.params_from_jax(params))
@@ -527,7 +535,7 @@ def tall_pair():
         jpipe.compute_dtype = jnp.float32
         params = jpipe.init_params(jax.random.PRNGKey(0))
         params["pos_table"] = params["pos_table"] * IMPORTANCE_TABLE_BOOST
-        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tds = _port_dataset(config["dataset"])
         tpipe = get_pipeline(copy.deepcopy(config["pipeline"]), tds, device="cpu")
         tpipe.compute_dtype = torch.float32
         tpipe.load_params(convert.params_from_jax(params))
@@ -620,7 +628,7 @@ def pb_run(request, tmp_path_factory):
         jpipe = JaxPipeline(pcfg, jds)
         jpipe.compute_dtype = jnp.float32
         params = jpipe.init_params(jax.random.PRNGKey(0))
-        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tds = _port_dataset(config["dataset"])
         tpipe = get_pipeline(copy.deepcopy(pcfg), tds, device="cpu")
         tpipe.compute_dtype = torch.float32
         _share_preprocessor(jpipe, tpipe, jds.scene_transform)

@@ -34,12 +34,18 @@ from atmonr_tpu.extract.runner import run_extraction as jax_run_extraction
 from atmonr_tpu.extract.voxel_traversal import voxel_traversal as jax_voxel_traversal
 from atmonr_tpu.models import hash_grid as jhg
 from atmonr_tpu.pipelines.instant_ngp import InstantNGPPipeline as JaxPipeline
-from atmonr_tpu_torch import convert, get_dataset, get_extract_dataset, get_pipeline, run_extraction
+from atmonr_tpu_torch import convert, get_extract_dataset, get_pipeline, run_extraction
 from atmonr_tpu_torch.extract import datasets as tdatasets
 from atmonr_tpu_torch.extract.voxel_traversal import voxel_traversal
 from atmonr_tpu_torch.scripts import extract as extract_cli
 from atmonr_tpu_torch.training import checkpoint as tckpt
-from test_torch_pipeline import SCENE, _config, _jax_dataset, _q8_dispatch, _share_preprocessor
+from test_torch_pipeline import (
+    _config,
+    _jax_dataset,
+    _port_dataset,
+    _q8_dispatch,
+    _share_preprocessor,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 GLOBAL_SCALE = 100 / 6.378e6
@@ -51,7 +57,7 @@ def datasets():
     """(JAX dataset, port dataset) of one synthetic granule; their host
     arrays are equal (``test_torch_pipeline``)."""
     config = _config("xla")
-    return _jax_dataset(config), get_dataset(config["dataset"], SCENE, device="cpu")
+    return _jax_dataset(config), _port_dataset(config["dataset"])
 
 
 def _rows(a) -> set:

@@ -44,7 +44,7 @@ from atmonr_tpu_torch.pipelines import nerf as tnerf
 from atmonr_tpu_torch.scripts import extract as extract_cli
 from atmonr_tpu_torch.scripts import train as train_cli
 from atmonr_tpu_torch.training import checkpoint as tckpt
-from test_torch_pipeline import N_RAYS, SCENE, _host_preprocess, _jax_dataset
+from test_torch_pipeline import N_RAYS, SCENE, _host_preprocess, _jax_dataset, _port_dataset
 from test_torch_train import _adam_state, _jax_loss_and_grads, _t, _worst
 
 REPO = Path(__file__).resolve().parent.parent
@@ -337,7 +337,7 @@ def pair(request):
         config = _nerf_config(include_height=variant == "include_height")
         pcfg = config["pipeline"]
         jds = _jax_dataset(config)
-        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tds = _port_dataset(config["dataset"])
         idx = np.random.default_rng(6).permutation(len(tds))[:N_RAYS]
         batch = {k: v[idx] for k, v in tds.host_rays().items()}
         jpipe = jnerf.NeRFPipeline(pcfg, jds)
@@ -489,7 +489,7 @@ def training_run(tmp_path_factory):
     pcfg, tcfg = config["pipeline"], _trainer_config()
     pcfg["encoder"] = dict(GOLDEN_CONFIG["encoder"])
     jds = _jax_dataset(config)
-    tds = get_dataset(config["dataset"], SCENE, device="cpu")
+    tds = _port_dataset(config["dataset"])
     jpipe = jnerf.NeRFPipeline(pcfg, jds)
     tpipe = get_pipeline(copy.deepcopy(pcfg), tds, device="cpu")
     params = jpipe.init_params(jax.random.PRNGKey(1))

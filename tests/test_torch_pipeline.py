@@ -31,6 +31,9 @@ from atmonr_tpu.models import hash_grid as jhg
 from atmonr_tpu.ops.hash_gather_pallas import hash_encode_pallas_fwd
 from atmonr_tpu.pipelines.instant_ngp import InstantNGPPipeline as JaxPipeline
 from atmonr_tpu_torch import convert, get_dataset, get_pipeline, run_extraction
+from atmonr_tpu_torch.data.factory import _synthetic_from_name
+from atmonr_tpu_torch.data.harp2 import HARP2Dataset
+from atmonr_tpu_torch.geo import wgs84 as twgs84
 
 SCENE = "synthetic:16x8x2"
 N_RAYS = 48
@@ -73,12 +76,20 @@ def _config(mode: str) -> dict:
 
 
 def _jax_dataset(config):
-    # the numpy float64 ray builder, as the port builds rays
+    # the numpy float64 ray builder, as _port_dataset builds rays
     return JaxHARP2Dataset(
         config["dataset"],
         make_synthetic_granule(height=16, width=8, views_per_band=2),
         ray_builder=lambda *a, **k: jwgs84.get_rays(*a, **k, xp=np),
     )
+
+
+def _port_dataset(dataset_config):
+    """The port's dataset of ``SCENE`` on the CPU with the numpy float64 ray
+    builder, the rays of ``_jax_dataset`` (the default, the host library,
+    places origins up to 25 m away: ``tests/test_torch_native.py``)."""
+    return HARP2Dataset(dataset_config, _synthetic_from_name(SCENE), device="cpu",
+                        ray_builder=twgs84.get_rays)
 
 
 def _q8_dispatch(table, x, cfg, sr_noise=None, tiles=None):
@@ -150,7 +161,7 @@ def run(request):
         jpipe.compute_dtype = jnp.float32
         params = jpipe.init_params(jax.random.PRNGKey(0))
 
-        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tds = _port_dataset(config["dataset"])
         tpipe = get_pipeline(copy.deepcopy(config["pipeline"]), tds, device="cpu")
         tpipe.compute_dtype = torch.float32
         tpipe.load_params(convert.params_from_jax(params))

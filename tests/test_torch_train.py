@@ -45,6 +45,7 @@ from test_torch_pipeline import (
     SCENE,
     _config,
     _jax_dataset,
+    _port_dataset,
     _q8_dispatch,
     _share_preprocessor,
 )
@@ -296,7 +297,7 @@ def pair(request):
         jpipe = JaxPipeline(config["pipeline"], jds)
         jpipe.compute_dtype = jnp.float32
         params = jpipe.init_params(jax.random.PRNGKey(0))
-        tds = get_dataset(config["dataset"], SCENE, device="cpu")
+        tds = _port_dataset(config["dataset"])
         tpipe = get_pipeline(copy.deepcopy(config["pipeline"]), tds, device="cpu")
         tpipe.compute_dtype = torch.float32
         tpipe.load_params(convert.params_from_jax(params))
@@ -494,12 +495,19 @@ def training_run(pair, tmp_path_factory):
     rng = np.random.default_rng(7)
     base, aux_key = jax.random.split(jax.random.PRNGKey(3))
     steps = []
+    # the JAX Trainer's progress buffers (trainer.py band_preds): full,
+    # surface and atmosphere color in each ray's own band
+    jpix = np.zeros((len(tds), 3), np.float32)
     for s in range(K_STEPS):
         idx = rng.permutation(len(tds))[:N_RAYS]
         key = jax.random.fold_in(base, s)
         k_aux = jax.random.fold_in(aux_key, s + 1)
         jbatch = jbatching.gather_batch(jrays, jnp.asarray(idx))
         jloss, jgrads = _jax_loss_and_grads(jpipe, params, jbatch, key, aux)
+        jres = jpipe.forward(params, jbatch, key=key, aux=aux)
+        irgb = np.asarray(jbatch["irgb_idx"])[:, None]
+        for c, name in enumerate(("color_map_fine", "color_map_surf", "color_map_atmo")):
+            jpix[idx, c] = np.take_along_axis(np.asarray(jres[name]), irgb, axis=1)[:, 0]
         updates, opt_state = jopt.update(jgrads, opt_state, params)
         params = optax.apply_updates(params, updates)
         if (s + 1) % 2 == 0:
@@ -520,6 +528,7 @@ def training_run(pair, tmp_path_factory):
             "tmu": mu, "tnu": nu,
             "jocc": np.asarray(aux["occ"]), "tocc": tpipe.occ.clone().numpy(),
             "idx": idx,
+            "jpix": jpix.copy(), "tpix": trainer.progress_pixels.clone().numpy(),
         })
     return {"steps": steps, "trainer": trainer}
 
@@ -613,6 +622,28 @@ def test_trainer_occupancy_refresh_matches_jax(training_run):
     assert np.any(steps[3]["tocc"] != steps[2]["tocc"])
     for s in steps:
         np.testing.assert_allclose(s["tocc"], s["jocc"], rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("part", range(3), ids=["full", "surface", "atmosphere"])
+def test_trainer_progress_pixels_match_jax(training_run, part):
+    """After every step, the full, surface and atmosphere predictions kept
+    for the epoch's metrics and RGB image: rtol 1e-3 plus 1e-5 of the
+    largest full prediction (the parts sum to it); the rays no step has
+    touched 0 in both. Measured: the full and surface parts within 7e-7
+    relative; the atmosphere part, 1e-5 to 1e-3 of the full color at these
+    first steps, within 2e-5 relative for "xla" and 1.1e-3 for "q8", where
+    the interpret-mode forward's fused multiply-add moves the features
+    (``test_trainer_moments_match_jax``): 3e-9 absolute. From the second
+    step on each package renders with parameters it updated itself."""
+    for i, s in enumerate(training_run["steps"]):
+        got, want = s["tpix"][:, part], s["jpix"][:, part]
+        assert np.count_nonzero(want) > 0
+        scale = np.abs(s["jpix"][:, 0]).max()
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5 * scale, err_msg=f"step {i}")
+        untouched = np.ones(len(got), bool)
+        for t in training_run["steps"][: i + 1]:
+            untouched[t["idx"]] = False
+        assert np.all(got[untouched] == 0) and np.all(want[untouched] == 0)
 
 
 def test_trainer_writes_progress_pixels(training_run):
