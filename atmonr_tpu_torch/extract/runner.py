@@ -1,7 +1,9 @@
 """Batched extinction-field query of a pipeline (counterpart of the JAX
-package's ``extract/runner.py``, single device): the points stream through
+package's ``extract/runner.py``): the points stream through
 ``pipeline.extract`` in fixed-size batches on the pipeline's device, and
-the densities are rescaled to m^-1 by ``1/scale``."""
+the densities are rescaled to m^-1 by ``1/scale``. With a mesh, each of its
+W ranks queries its contiguous 1/W of every batch and the ranks' sigma is
+gathered at the end."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ def run_extraction(
     points,
     batch_size: int = 32768,
     verbose: bool = False,
+    mesh=None,
 ) -> np.ndarray:
     """Query ``pipeline.extract`` over ECEF points.
 
@@ -24,20 +27,60 @@ def run_extraction(
     run in batches of ``batch_size`` and one shorter tail. ``verbose``
     prints the batch count as it goes. Returns sigma
     (N, num_density_outputs) in m^-1 as a float32 numpy array.
+
+    ``mesh`` (every rank of it calls): the batch is trimmed to a multiple
+    of the mesh's W ranks, as in the JAX package, and the rank at (d, s)
+    queries rows [r m, (r + 1) m) of each batch, r = d * sample + s, m =
+    1/W of the batch (the tail padded to a multiple of W); one gather at
+    the end gives every rank the whole sigma. The points are independent,
+    so with one rank the values equal the unsharded query's.
     """
     scale = pipeline.scale
     offset = np.asarray(pipeline.offset, np.float64)
     xyz = np.asarray(getattr(points, "xyz", points), np.float64)
     n = xyz.shape[0]
+    n_ranks, rank = 1, 0
+    if mesh is not None:
+        n_ranks = mesh.mesh.numel()
+        coord = mesh.get_coordinate()
+        rank = coord[0] * mesh.mesh.shape[1] + coord[1]
+        batch_size = max(batch_size - batch_size % n_ranks, n_ranks)
     nb = -(-n // batch_size)
     pts_all = torch.from_numpy(((xyz - offset[None]) / scale).astype(np.float32))
     pts_all = pts_all.to(pipeline.device)
 
-    out = []
+    out, shares = [], []
     for i in range(nb):
-        out.append(pipeline.extract(pts_all[i * batch_size : (i + 1) * batch_size]) / scale)
+        batch = pts_all[i * batch_size : (i + 1) * batch_size]
+        if mesh is not None:
+            m = -(-batch.shape[0] // n_ranks)
+            shares.append(m)
+            batch = batch[rank * m : (rank + 1) * m]
+            if batch.shape[0] < m:  # the tail's last ranks: pad with the origin
+                batch = torch.cat([batch, batch.new_zeros((m - batch.shape[0], 3))])
+        out.append(pipeline.extract(batch) / scale)
         if verbose:
             print(f"extract batch {i + 1}/{nb}", end="\r")
     if verbose:
         print()
-    return torch.cat(out, dim=0).cpu().numpy()
+    sigma = torch.cat(out, dim=0)
+    if mesh is not None:
+        sigma = _gather_shares(sigma, shares, mesh)[:n]
+    return sigma.cpu().numpy()
+
+
+def _gather_shares(local: torch.Tensor, shares: list[int], mesh) -> torch.Tensor:
+    """Every rank's shares of every batch, in batch order: rank r's share of
+    batch i follows rank r-1's. A gather along "sample", then along
+    "data"."""
+    from atmonr_tpu_torch.parallel.mesh import mesh_axis
+    from atmonr_tpu_torch.parallel.sharding import all_gather
+
+    g = all_gather(local, mesh_axis(mesh, "sample"), False)  # (ns, L, k)
+    g = all_gather(g, mesh_axis(mesh, "data"), False)  # (nd, ns, L, k)
+    g = g.reshape(-1, *local.shape)  # (W, L, k)
+    parts, offset = [], 0
+    for m in shares:
+        parts.append(g[:, offset : offset + m].reshape(-1, local.shape[1]))
+        offset += m
+    return torch.cat(parts, dim=0)

@@ -11,8 +11,12 @@ the grid of ``--coord-mode`` (``l1c``, ``voxelgrid``, ``globalgrid`` or
 or a ``.npy`` pair, for ``globalgrid``) to ``<output>/<extract-filename>``.
 The flags of the JAX package's ``scripts/extract.py``, plus ``--device``
 (``cuda`` by default; the run raises when there is no card, pass ``cpu`` to
-run there). ``--mesh`` needs multi-device extraction, which is not ported
-yet, and raises.
+run there). ``--mesh data=N[,sample=M]`` splits every batch over the N*M
+processes that torchrun launched (one per device, ``cuda:LOCAL_RANK``;
+gloo with ``--device cpu``); the first rank writes:
+
+    torchrun --nproc-per-node 4 -m atmonr_tpu_torch.scripts.extract \
+        --mesh data=4 --exp-name demo --coord-mode l1c --extract-filename demo.nc
 """
 
 import argparse
@@ -23,9 +27,6 @@ from pathlib import Path
 from typing import Any, NamedTuple
 
 EARTH_RADIUS = 6.378e6
-MESH_NOT_PORTED = (
-    "--mesh: multi-device extraction is not ported yet (ROADMAP.md queue 1, 'Multi-device')"
-)
 
 
 class Extraction(NamedTuple):
@@ -64,7 +65,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--earthcare-range", type=lambda s: [int(v) for v in s.split(",")]
     )
     parser.add_argument("--data-root", type=str, default="data")
-    parser.add_argument("--mesh", type=str, default=None, help="Not ported yet; raises.")
+    parser.add_argument(
+        "--mesh",
+        type=str,
+        default=None,
+        help="Device mesh spec 'data=N' or 'data=N,sample=M' over torchrun's "
+        "processes: shard every query batch over all of its ranks.",
+    )
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu.")
     args = parser.parse_args(argv)
     args.coord_mode = args.coord_mode.lower()
@@ -83,20 +90,38 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> Extraction:
     """Run the extraction; returns what it did, for callers in the same
-    process."""
+    process. A process group that ``--mesh`` joined is left again at the
+    end."""
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    import torch.distributed as dist
 
+    from atmonr_tpu_torch.parallel import mesh as pmesh
+
+    joined = bool(args.mesh) and not dist.is_initialized()
+    if joined:
+        pmesh.initialize_distributed(args.device)
+    try:
+        return _extract(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _extract(args: argparse.Namespace) -> Extraction:
     from atmonr_tpu_torch import get_dataset, get_extract_dataset, get_pipeline, run_extraction
+    from atmonr_tpu_torch.parallel import mesh as pmesh
     from atmonr_tpu_torch.training.checkpoint import restore_params
 
+    mesh, device = None, args.device
+    if args.mesh:
+        mesh = pmesh.make_mesh_from_spec(args.mesh)  # raises when the world is too small
+        device = pmesh.rank_device(args.device)
     output_path = Path(args.data_root) / "output" / args.exp_name
     train_args = json.loads((output_path / "args.json").read_text())
     config = json.loads((output_path / "config.json").read_text())
-
+    first = pmesh.is_first_rank(mesh)
     dataset = get_dataset(
-        config["dataset"], train_args["scene_filename"], args.data_root, device=args.device
+        config["dataset"], train_args["scene_filename"], args.data_root, device=device
     )
     t0 = time.perf_counter()
     extract_dataset = get_extract_dataset(
@@ -115,23 +140,27 @@ def main(argv=None) -> Extraction:
         data_root=args.data_root,
     )
     build_s = time.perf_counter() - t0
-    print(
+    say = print if first else (lambda *a, **k: None)
+    say(
         f"{args.coord_mode} grid: {len(extract_dataset)} points, shape "
         f"{extract_dataset.shp}, built in {build_s:.2f} s"
     )
 
-    pipeline = get_pipeline(config["pipeline"], dataset, device=args.device)
+    pipeline = get_pipeline(config["pipeline"], dataset, device=device)
     epoch = restore_params(output_path, pipeline)
     t0 = time.perf_counter()
-    sigma = run_extraction(pipeline, extract_dataset, args.batch_size, verbose=True)
+    sigma = run_extraction(pipeline, extract_dataset, args.batch_size, verbose=first, mesh=mesh)
     query_s = time.perf_counter() - t0
-    print(
+    say(
         f"queried epoch {epoch}'s field at {len(extract_dataset)} points in {query_s:.3f} s "
         f"= {len(extract_dataset) / query_s:.0f} points/s on {pipeline.device}"
     )
     path = output_path / args.extract_filename
-    extract_dataset.dump(path, sigma)
-    print(f"wrote {path}")
+    if first:
+        extract_dataset.dump(path, sigma)
+        print(f"wrote {path}")
+    if mesh is not None:
+        pmesh.mesh_barrier(mesh)  # the file is there when any rank returns
     return Extraction(extract_dataset, sigma, build_s, query_s, path)
 
 

@@ -16,6 +16,20 @@ Random streams: the Trainer owns four ``torch.Generator``s on its device,
 seeded from ``seed`` (parameter init, epoch permutations, per-step draws,
 occupancy jitter). A checkpoint holds their states, so a resumed run on the
 CPU continues exactly as the uninterrupted run would.
+
+On several devices (``shard(mesh)``, one process per device): each data
+index of the mesh holds its own contiguous rows of the ray set and permutes
+them every epoch (the JAX package draws one permutation over the whole
+sharded set instead; both visit every ray once an epoch), the sample ranks
+of a data index march slices of the same rays, and after the backward one
+``all_reduce`` of a flat buffer per mesh axis makes the gradient and the
+loss the same on every rank (``parallel/train.py::reduce_gradients``)
+before the clip and AdamW. The init, permutation and occupancy streams are
+the same on every rank, so the parameters and the occupancy grid stay
+equal with no other collective; the draws stream is seeded by the data
+index, so that the sample ranks of a row place the same samples. The
+mesh's first rank prints, logs and writes checkpoints; every rank loads
+them.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import numpy as np
 import torch
 
 from atmonr_tpu_torch.data import batching
+from atmonr_tpu_torch.parallel import mesh as pmesh
 from atmonr_tpu_torch.training import checkpoint as ckpt
 from atmonr_tpu_torch.training.metrics import image_metrics
 from atmonr_tpu_torch.training.schedules import make_lr_schedule
@@ -38,10 +53,6 @@ from atmonr_tpu_torch.utils.device import resolve_device
 
 # the color maps whose prediction in each ray's own band the step keeps
 _PROGRESS_MAPS = ("color_map_fine", "color_map_surf", "color_map_atmo")
-MULTI_DEVICE_NOT_PORTED = (
-    "multi-device and multi-granule training are not ported yet "
-    "(ROADMAP.md queue 1, 'Multi-device')"
-)
 
 
 class _ScalarLogger:
@@ -80,6 +91,27 @@ class _ScalarLogger:
             self.tb.close()
 
 
+class _NullLogger:
+    """The logger of a rank that does not write: the mesh's first rank
+    writes for all."""
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def image(self, tag: str, img_hwc: np.ndarray, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
 class _LaggedScalar:
     """A 0-d device tensor on its way to the host: the copy is enqueued at
     construction, behind the work that computes the value, and ``get`` waits
@@ -104,6 +136,11 @@ class _LaggedScalar:
 def _stream_seed(seed: int, *stream: int) -> int:
     """A well-mixed 64-bit seed for one of the Trainer's random streams."""
     return int(np.random.SeedSequence([seed, *stream]).generate_state(1, np.uint64)[0])
+
+
+def _draws_seed(seed: int, data_index: int) -> int:
+    """The draws stream of a data index; index 0's is the unsharded one."""
+    return _stream_seed(seed, 2, *([data_index] if data_index else []))
 
 
 class Trainer:
@@ -166,8 +203,13 @@ class Trainer:
             int(config.get("micro_batch_size", 0)) or None, self.batch_size
         )
 
+        self.mesh = None
+        self.axes: pmesh.MeshAxes | None = None  # this rank's view of the mesh
         self.rays = dataset.rays(self.device)
         self.num_rays = len(dataset)
+        # this rank's rays and rays per step (the whole set and batch
+        # without a mesh)
+        self.rank_rays, self.rank_batch = self.num_rays, self.batch_size
         self.steps_per_epoch = max(1, self.num_rays // self.batch_size)
         self.num_epochs = -(-self.num_iters // self.steps_per_epoch)
         self.lr_schedule = make_lr_schedule(
@@ -175,7 +217,9 @@ class Trainer:
         )
 
         self.generators = {
-            name: torch.Generator(device=self.device).manual_seed(_stream_seed(self.seed, i))
+            name: torch.Generator(device=self.device).manual_seed(
+                _draws_seed(self.seed, 0) if name == "draws" else _stream_seed(self.seed, i)
+            )
             for i, name in enumerate(("init", "perm", "draws", "aux"))
         }
         self._init_model()
@@ -196,7 +240,10 @@ class Trainer:
 
         now = datetime.now().strftime("%Y%m%d_%H%M%S")
         self.tensorboard_dir = Path(data_root) / "tensorboard" / f"{exp_name}_{now}"
-        self.logger = _ScalarLogger(self.tensorboard_dir)
+        # rank 0 of a process group (until shard() names the mesh's first)
+        self.is_main = pmesh.is_first_rank(None)
+        self.logger = _ScalarLogger(self.tensorboard_dir) if self.is_main else _NullLogger()
+        self._print = print if self.is_main else _quiet
         # per-epoch saves overlap the next epoch; iterate() waits for the
         # last one before it returns
         self.checkpointer = ckpt.AsyncCheckpointManager()
@@ -217,11 +264,13 @@ class Trainer:
         )
 
     @staticmethod
-    def _normalize_micro(micro: int | None, batch_size: int) -> int | None:
+    def _normalize_micro(micro: int | None, batch_size: int, n_data: int = 1) -> int | None:
         """Fit a configured micro-batch size to the (possibly clamped) batch
-        size: the loop needs ``batch_size % micro == 0``. A config tuned for
-        a full-size granule must not crash on a small one, so shrink to the
-        largest divisor (or disable) with a warning instead."""
+        size: the loop needs ``batch_size % micro == 0`` and, under a mesh,
+        equal micro-batches on every data index (``micro % n_data == 0``).
+        A config tuned for a full-size granule must not crash on a small
+        one, so shrink to the largest valid divisor (or disable) with a
+        warning instead."""
         if not micro:
             return None
         if micro >= batch_size:
@@ -231,20 +280,127 @@ class Trainer:
                     "micro-batching disabled."
                 )
             return None
-        if batch_size % micro == 0:
+        if batch_size % micro == 0 and micro % n_data == 0:
             return micro
-        fitted = next(d for d in range(micro, 0, -1) if batch_size % d == 0)
+        fitted = next(
+            (d for d in range(micro, 0, -1) if batch_size % d == 0 and d % n_data == 0), None
+        )
+        if fitted is None or fitted == batch_size:
+            warnings.warn(
+                f"micro_batch_size {micro} has no valid divisor of batch_size {batch_size} "
+                f"on {n_data} data shards; micro-batching disabled."
+            )
+            return None
         warnings.warn(
-            f"micro_batch_size {micro} does not divide batch_size {batch_size}; "
-            f"shrinking to {fitted}."
+            f"micro_batch_size {micro} does not divide batch_size {batch_size} into whole "
+            f"{n_data}-shard micro-batches; shrinking to {fitted}."
         )
         return fitted
 
+    @property
+    def sample_sharded(self) -> bool:
+        return self.axes is not None and self.axes.sample.size > 1
+
     def shard(self, mesh) -> None:
-        raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
+        """Train on a (data, sample) mesh (``parallel/mesh.py``), one process
+        per device, every rank of the mesh calling it: this rank keeps its
+        data index's rows of the ray set, the batch is split over "data"
+        (trimmed to a multiple of it, the micro-batch refitted), the
+        parameters, moments and occupancy grid are the mesh's first rank's,
+        and the draws stream is seeded by the data index. With a "sample"
+        axis over 1 (Instant-NGP only) the step runs
+        ``parallel/train.py::ngp_forward_sample_sharded``; otherwise the
+        pipeline's own forward on the rank's rows. The gradients are
+        all-reduced before the clip."""
+        from atmonr_tpu_torch.parallel.data import host_ray_slice, shard_rays_from_hosts
+        from atmonr_tpu_torch.parallel.sharding import replicate
+        from atmonr_tpu_torch.parallel.train import sample_sharded_samples
+
+        if not pmesh.in_mesh(mesh):
+            raise ValueError("this rank is not in the mesh")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a Trainer on {self.device}")
+        if self.check_numerics:
+            raise ValueError(
+                "check_numerics is single-device only, as in the JAX package: train "
+                "without a mesh (one device per granule) to localize the NaN, or drop "
+                "--check-numerics to train sharded"
+            )
+        shape = pmesh.mesh_shape(mesh)
+        n_data, ns = shape["data"], shape["sample"]
+        if ns > 1:
+            if "num_samples_per_ray" not in self.pipeline.config:
+                raise ValueError(
+                    "a 'sample' mesh axis > 1 requires the Instant-NGP pipeline "
+                    "(hierarchical NeRF resamples adaptively; shard its rays over "
+                    "'data' instead)"
+                )
+            n_samples = sample_sharded_samples(self.pipeline)
+            if n_samples % ns:
+                raise ValueError(
+                    f"samples per ray ({n_samples}) must divide the mesh 'sample' axis ({ns})"
+                )
+        self.mesh, self.axes = mesh, pmesh.mesh_axes(mesh)
+        host = self.dataset.host_rays()
+        n_total = host["origin"].shape[0]
+        sl = host_ray_slice(n_total, mesh)
+        self.rays = shard_rays_from_hosts(
+            {k: v[sl] for k, v in host.items()}, n_total, mesh, self.device
+        )
+        self.rank_rays = sl.stop - sl.start
+        self.num_rays = self.rank_rays * n_data
+        # trimming to a mesh multiple can drop below a dataset-clamped batch
+        self.batch_size = min(self.batch_size, self.num_rays)
+        self.batch_size -= self.batch_size % n_data
+        if self.batch_size <= 0:
+            raise ValueError(f"{self.num_rays} rays give no batch on {n_data} data shards")
+        self.rank_batch = self.batch_size // n_data
+        self.micro_batch = self._normalize_micro(self.micro_batch, self.batch_size, n_data)
+        self.steps_per_epoch = max(1, self.num_rays // self.batch_size)
+        self.num_epochs = -(-self.num_iters // self.steps_per_epoch)
+        self.progress_pixels = torch.zeros(
+            (self.rank_rays, len(_PROGRESS_MAPS)), dtype=torch.float32, device=self.device
+        )
+        self.generators["draws"].manual_seed(_draws_seed(self.seed, self.axes.data.index))
+        replicate(self._replicated_tensors(), mesh)
+
+        main = pmesh.is_first_rank(mesh)
+        if main and not self.is_main:
+            self.logger = _ScalarLogger(self.tensorboard_dir)
+        elif self.is_main and not main:
+            self.logger.close()
+            self.logger = _NullLogger()
+        self.is_main = main
+        self._print = print if main else _quiet
+
+    def _replicated_tensors(self) -> list[torch.Tensor]:
+        """The tensors every rank must hold equal: the pipeline's
+        parameters and buffers and the optimizer's moments."""
+        tensors = list(self.pipeline.state_dict().values())
+        for state in self.optimizer.adamw.state.values():
+            tensors += [v for v in state.values() if torch.is_tensor(v) and v.device == self.device]
+        return tensors
 
     def place(self, device) -> None:
-        raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
+        """Move this trainer (rays, parameters, occupancy grid, moments,
+        random streams) to ``device`` without a mesh: one granule of a
+        multi-granule run in one process. Between devices of one type; the
+        streams go on from where they were."""
+        dev = resolve_device(device)
+        if dev.type != self.device.type:
+            raise ValueError(f"place moves between devices of one type: {self.device} -> {dev}")
+        if self.mesh is not None:
+            raise ValueError("place is for a Trainer without a mesh")
+        self.pipeline.to(dev)
+        self.pipeline.device = dev
+        self.optimizer.load_state_dict(self.optimizer.state_dict())  # moments to dev
+        self.rays = {k: v.to(dev) for k, v in self.rays.items()}
+        self.progress_pixels = self.progress_pixels.to(dev)
+        for name, g in self.generators.items():
+            moved = torch.Generator(device=dev)
+            moved.set_state(g.get_state())
+            self.generators[name] = moved
+        self.device = dev
 
     # -- one step --------------------------------------------------------------
 
@@ -263,7 +419,8 @@ class Trainer:
         they come from the ``draws`` and ``aux`` generators."""
         pipe = self.pipeline
         batch = batching.gather_batch(self.rays, idx)
-        micro = self.micro_batch or self.batch_size
+        n_data = self.axes.data.size if self.axes is not None else 1
+        micro = self.micro_batch // n_data if self.micro_batch else self.rank_batch
         n_micro = idx.shape[0] // micro if self.micro_batch else 1
         if draws is None or isinstance(draws, Mapping):
             draws = [draws] * n_micro
@@ -280,15 +437,22 @@ class Trainer:
             )
             mdraws = draws[i]
             if mdraws is None:
-                mdraws = pipe.make_draws(mbatch["idx"].shape[0], self.generators["draws"])
-            results = pipe(mbatch, draws=mdraws)
+                mdraws = self._make_draws(mbatch["idx"].shape[0])
+            results = self._forward(mbatch, mdraws)
+            # this rank's share of the mean over the micro-batches and the
+            # data indices; the shares' gradients accumulate in .grad
             loss = pipe.compute_loss(mbatch, results)
-            # the mean of the micro-batches' gradients accumulates in .grad
+            if n_data > 1:
+                loss = loss / n_data
             (loss / n_micro).backward()
             losses.append(loss.detach())
             if self.progress:
                 self._scatter_progress(mbatch, results)
         loss = losses[0] if n_micro == 1 else torch.mean(torch.stack(losses))
+        if self.mesh is not None:
+            from atmonr_tpu_torch.parallel.train import reduce_gradients
+
+            loss = reduce_gradients(list(pipe.named_parameters()), self.axes, loss)
         if self.check_numerics:
             self._raise_if_not_finite(loss)
         self.optimizer.step()
@@ -300,6 +464,20 @@ class Trainer:
             else:
                 pipe.update_aux(generator=self.generators["aux"])
         return loss
+
+    def _make_draws(self, batch_size: int) -> dict[str, torch.Tensor]:
+        if self.sample_sharded:
+            from atmonr_tpu_torch.parallel.train import sample_sharded_draws
+
+            return sample_sharded_draws(self.pipeline, batch_size, self.generators["draws"])
+        return self.pipeline.make_draws(batch_size, self.generators["draws"])
+
+    def _forward(self, batch, draws) -> dict[str, torch.Tensor]:
+        if self.sample_sharded:
+            from atmonr_tpu_torch.parallel.train import ngp_forward_sample_sharded
+
+            return ngp_forward_sample_sharded(self.pipeline, batch, self.axes, draws)
+        return self.pipeline(batch, draws=draws)
 
     @torch.no_grad()
     def _scatter_progress(self, batch, results) -> None:
@@ -332,20 +510,24 @@ class Trainer:
         mean_loss = mean.get()
         self.logger.scalar("Loss", mean_loss, step)
         line = f"{step}/{self.num_iters} | Loss: {mean_loss:.5f}"
-        print(line + max(0, self._last_len - len(line)) * " ", end="\r")
+        self._print(line + max(0, self._last_len - len(line)) * " ", end="\r")
         self._last_len = len(line)
 
     def _reinit_for_restart(self, recent_loss: float) -> None:
         """Re-draw the init after a detected collapse. The iteration budget
         keeps counting: a restart costs the iterations already spent."""
         self._restarts += 1
-        print(
+        self._print(
             f"\n[restart {self._restarts}] loss {recent_loss:.3f} still above "
             f"{self.restart_on_plateau['loss_threshold']:g} at iter "
             f"{self.iter_count}; re-drawing the init"
         )
         self.generators["init"].manual_seed(_stream_seed(self.seed, 0, self._restarts))
         self._init_model()
+        if self.mesh is not None:
+            from atmonr_tpu_torch.parallel.sharding import replicate
+
+            replicate(self._replicated_tensors(), self.mesh)
 
     def install_preemption_handler(self) -> None:
         """On SIGTERM finish the step in flight, write a checkpoint and
@@ -381,11 +563,12 @@ class Trainer:
         rop = self.restart_on_plateau
 
         while self.iter_count < self.num_iters:
+            # this rank's rows (all rows without a mesh), permuted
             perm = batching.epoch_permutation(
-                self.generators["perm"], self.num_rays, self.batch_size
+                self.generators["perm"], self.rank_rays, self.rank_batch
             )
             for i in range(self.steps_per_epoch):
-                loss = self.step(perm[i * self.batch_size : (i + 1) * self.batch_size])
+                loss = self.step(perm[i * self.rank_batch : (i + 1) * self.rank_batch])
                 # exactly the last print_frequency losses, so each block
                 # mean averages its own block only
                 running = (running + [loss])[-self.print_frequency :]
@@ -425,20 +608,21 @@ class Trainer:
                 prof.export_chrome_trace(str(self.tensorboard_dir / "trace.json"))
                 prof = None
             if self._preempted:
-                print(
+                self._print(
                     f"\npreempted: checkpoint epoch {self.epoch_idx} saved, "
                     "resume with --resume"
                 )
                 break
-        self.checkpointer.wait()  # the last epoch's save must have landed
+        self._wait_checkpoint()  # the last epoch's save must have landed
         self.logger.flush()
-        print()
+        self._print()
 
     def _end_of_epoch(self, last_len: int = 0) -> None:
         line = f"Epoch {self.epoch_idx}/{self.num_epochs}"
-        if self.progress:
+        # every rank of a mesh gathers; the first scores and logs
+        pixels = self._host_progress() if self.progress else None
+        if pixels is not None and self.is_main:
             ds = self.dataset
-            pixels = self.progress_pixels.cpu().numpy()
             pred_img = ds.scatter_image(pixels[:, 0])
             metrics = image_metrics(pred_img, ds.target_image(), ds.max_i)
             for name, val in metrics.items():
@@ -447,8 +631,22 @@ class Trainer:
                 line += f" | {name}: {val:.3f}"
                 self.logger.scalar(name, val, self.epoch_idx)
             self.logger.image(f"Epoch {self.epoch_idx}", self.epoch_image(pixels), self.epoch_idx)
-        print(line + max(0, last_len - len(line)) * " ")
+        self._print(line + max(0, last_len - len(line)) * " ")
         self.logger.flush()
+
+    def _host_progress(self) -> np.ndarray:
+        """``progress_pixels`` of every ray on the host, (num rays of the
+        dataset, 3): under a mesh, the data indices' rows gathered in order
+        (a collective: every rank of the mesh calls it), the trimmed rows
+        zero."""
+        if self.mesh is None:
+            return self.progress_pixels.cpu().numpy()
+        from atmonr_tpu_torch.parallel.sharding import all_gather
+
+        rows = all_gather(self.progress_pixels, self.axes.data, False)
+        pixels = np.zeros((len(self.dataset), len(_PROGRESS_MAPS)), np.float32)
+        pixels[: self.num_rays] = rows.reshape(-1, len(_PROGRESS_MAPS)).cpu().numpy()
+        return pixels
 
     def epoch_image(self, pixels: np.ndarray | None = None) -> np.ndarray:
         """The side-by-side RGB comparison, surface | atmosphere | full |
@@ -456,15 +654,17 @@ class Trainer:
         ``pixels`` is ``progress_pixels`` on the host, fetched if not given."""
         ds = self.dataset
         if pixels is None:
-            pixels = self.progress_pixels.cpu().numpy()
+            pixels = self._host_progress()
         cubes = [ds.scatter_image(pixels[:, i]) for i in (1, 2, 0)] + [ds.target_image()]
         return np.concatenate([ds.get_rgb(c.transpose(2, 0, 1)) for c in cubes], axis=1)
 
     # -- checkpointing -------------------------------------------------------------
 
     def checkpoint_state(self) -> dict[str, Any]:
-        """What a checkpoint holds: live tensors (state dicts), not copies."""
-        return {
+        """What a checkpoint holds: live tensors (state dicts), not copies.
+        Under a mesh also every data index's draws stream (a collective:
+        every rank of the mesh calls it)."""
+        state = {
             # parameters and the occupancy grid
             "pipeline": self.pipeline.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -475,25 +675,61 @@ class Trainer:
             "restart_base": self._restart_base,
             "tensorboard_dir": str(self.tensorboard_dir),
         }
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            data = self.axes.data
+            draws = [None] * data.size
+            own = self.generators["draws"].get_state()
+            if data.group is None:
+                draws[0] = own
+            else:
+                dist.all_gather_object(draws, own, group=data.group)
+            state["draws_by_data_index"] = draws
+        return state
 
     def save(self, output_path: str | Path, epoch: int) -> None:
         """Save a checkpoint asynchronously (``checkpointer.wait()`` blocks
-        until it has landed)."""
-        self.checkpointer.save(output_path, epoch, self.checkpoint_state())
+        until it has landed); under a mesh the first rank writes."""
+        state = self.checkpoint_state()
+        if self.is_main:
+            self.checkpointer.save(output_path, epoch, state)
+
+    def _wait_checkpoint(self) -> None:
+        """Wait for the save in flight; under a mesh, then for every rank
+        of the mesh, so that none reads a checkpoint before it is on disk."""
+        self.checkpointer.wait()
+        if self.mesh is not None:
+            pmesh.mesh_barrier(self.mesh)
 
     def load(self, output_path: str | Path) -> None:
         """Restore the latest checkpoint under ``output_path`` (after any
-        save in flight has landed: it may be the latest)."""
-        self.checkpointer.wait()
+        save in flight has landed: it may be the latest). Under a mesh every
+        rank reads it and takes its data index's draws stream, where the
+        checkpoint has one for each (a checkpoint of an unsharded run holds
+        index 0's alone; the other indices then keep their own)."""
+        self._wait_checkpoint()
         state, _ = ckpt.restore_checkpoint(output_path)
         self.pipeline.load_state_dict(state["pipeline"])
         self.optimizer.load_state_dict(state["optimizer"])
         for k, g in self.generators.items():
             g.set_state(state["generators"][k])
+        if self.mesh is not None:
+            data = self.axes.data
+            by_index = state.get("draws_by_data_index")
+            if by_index is not None:
+                if len(by_index) != data.size:
+                    raise ValueError(
+                        f"the checkpoint holds draws for {len(by_index)} data indices, "
+                        f"the mesh has {data.size}"
+                    )
+                self.generators["draws"].set_state(by_index[data.index])
+            elif data.index:
+                self.generators["draws"].manual_seed(_draws_seed(self.seed, data.index))
         self.epoch_idx = int(state["epoch_idx"])
         self.iter_count = int(state["iter_count"])
         self._restarts = int(state["restarts"])
         self._restart_base = int(state["restart_base"])
         self.logger.close()
         self.tensorboard_dir = Path(state["tensorboard_dir"])
-        self.logger = _ScalarLogger(self.tensorboard_dir)
+        self.logger = _ScalarLogger(self.tensorboard_dir) if self.is_main else _NullLogger()

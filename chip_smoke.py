@@ -127,9 +127,22 @@ Phases, each of which raises on failure:
    ``nerf.json`` (``L_x`` gains a 4th entry of 10) and for
    ``instant_ngp_tpu.json`` (a 4-D position grid, no D=3 launch), 8 steps
    each with finite losses.
+9. Multi-device, in an NCCL process group of one rank (``FileStore`` in a
+   temporary directory; the machine has one card and NCCL refuses two
+   ranks on it): the flagship's ``Trainer.shard`` on ``data=1``, 4 steps on
+   the same rays and draws as the unsharded Trainer (losses to rtol 1e-5,
+   hash tables within ``MULTI_TABLE_REL_L2``, the same launches a step),
+   4 blocks of 16 steady steps of each in turns, a profiled step and the
+   gradient all-reduce alone; two granules of the flagship's scene through
+   ``train_granules`` on the card, 32 steps each (losses fall, twice a lone
+   Trainer's launches, granule 0 beside two lone Trainers of its seed,
+   combined rays/s); ``run_extraction`` over the mesh on the voxelgrid,
+   equal to the unsharded query bit for bit. The collectives of more than
+   one rank run in the CPU tests (gloo).
 
 Each main path (phases 4-5, phase 6's training and each of its three
-grids, each configuration of phase 7 and each path of phase 8) has every
+grids, each configuration of phase 7, each path of phase 8 and of phase 9)
+has every
 launch count set to 0 just before it and read just after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is the result, ``{"ok": true, "device": ...}``.
@@ -203,6 +216,17 @@ ORBIT_CHECK_RES = (160, 120, 192)
 # configs/nerf.json's path: train steps (past three epoch ends at 4,096 rays),
 # rays rendered on the card and on the CPU; the include_height paths' steps
 NERF_STEPS, NERF_COMPARE, HEIGHT_STEPS = 48, 512, 8
+# the multi-device phase: sharded steps held to the unsharded Trainer's,
+# blocks of steady steps of each, steps of each granule. K2's float atomics
+# add in another order on every step and AdamW's eps of 1e-15 turns a small
+# gradient's sign into a full step, so two runs of the same steps drift
+# apart, more with every step: the hash tables' relative L2 distance is held
+# to MULTI_TABLE_REL_L2 after MULTI_STEPS (3.9e-3 measured, NVIDIA H100 80GB
+# HBM3, 700 W), and a granule's after GRANULE_STEPS to GRANULE_SPREADS times
+# that between two lone Trainers of the same seed (0.124 measured for a
+# granule against one lone Trainer)
+MULTI_STEPS, MULTI_BLOCKS, GRANULE_STEPS = 4, 4, 32
+MULTI_TABLE_REL_L2, GRANULE_SPREADS = 0.02, 3.0
 
 
 def log(msg: str) -> None:
@@ -1020,6 +1044,7 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
                           torch.cuda.max_memory_allocated() / 2**20, card)
             compare_sigma(tag, grid.xyz, sigma, pipe, cpu)
             if mode == "voxelgrid":
+                ctx.update(voxelgrid=grid, extract_pipe=pipe)
                 # where the time of a query goes: one more run, profiled
                 from torch.profiler import ProfilerActivity, profile
 
@@ -1118,12 +1143,12 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
 
 def steady_step_s(trainer, n_blocks: int, block: int) -> list[float]:
     """Seconds per step of ``n_blocks`` blocks of ``block`` ``Trainer.step``
-    calls on fresh batches, each block ending in a synchronize (no epoch
-    end inside)."""
+    calls on fresh batches of the trainer's rows, each block ending in a
+    synchronize (no epoch end inside)."""
     from atmonr_tpu_torch.data import batching
 
-    b = trainer.batch_size
-    perm = batching.epoch_permutation(trainer.generators["perm"], trainer.num_rays, b)
+    b = trainer.rank_batch
+    perm = batching.epoch_permutation(trainer.generators["perm"], trainer.rank_rays, b)
     idx = [perm[i * b:(i + 1) * b] for i in range(trainer.steps_per_epoch)]
     out = []
     for k in range(n_blocks):
@@ -1737,6 +1762,243 @@ def phase_include_height(ds, card: str) -> dict:
     return paths
 
 
+def _table_rel_l2(a, b) -> dict[str, float]:
+    """Per hash table of two pipelines, ||a - b|| / ||b||."""
+    pb = dict(b.named_parameters())
+    return {
+        name: float(torch.linalg.vector_norm(p - pb[name]) / torch.linalg.vector_norm(pb[name]))
+        for name, p in a.named_parameters() if name == "pos_table" or name.startswith("surf_enc")
+    }
+
+
+def phase_multi_device(ctx: dict, card: str) -> dict:
+    """The multi-device paths on the one card, in one process joined to an
+    NCCL process group of one rank through a ``FileStore`` in a temporary
+    directory (no network; NCCL refuses two ranks on one card, so every
+    collective here is of one rank):
+
+    1. ``Trainer.shard(make_mesh_from_spec("data=1"))`` on the flagship at
+       full width: ``MULTI_STEPS`` steps on the same rays and draws as an
+       unsharded Trainer of the same seed (losses to rtol 1e-5, hash tables
+       within ``MULTI_TABLE_REL_L2``, K1 and K2 launches a step the same),
+       then ``MULTI_BLOCKS`` blocks of ``BLOCK`` steady steps of each in
+       turns (unsharded, sharded, sharded, unsharded), one profiled sharded
+       step, and the NCCL all-reduce of the
+       gradient's flat buffer alone (device and host time; the step skips it
+       on an axis of one rank);
+    2. two granules of ``synthetic:128x64x2`` (Trainer seeds 0 and 1, as the
+       train CLI seeds granules) through ``train_granules`` on the card,
+       ``GRANULE_STEPS`` steps each: finite losses falling in each, granule
+       0's tables against a lone Trainer of seed 0 within
+       ``GRANULE_SPREADS`` times the distance between two lone Trainers of
+       seed 0, twice a lone Trainer's launches, and the combined rays/s
+       beside the lone Trainer's;
+    3. ``run_extraction(..., mesh)`` on the extract phase's voxelgrid of the
+       trained flagship: sigma equal to the unsharded query's bit for bit,
+       K1 launched ceil(N / 32,768) times.
+
+    Each path's counts are set to 0 just before it and read just after.
+    Returns the counts by path."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from atmonr_tpu_torch import Trainer, get_dataset, get_pipeline, run_extraction
+    from atmonr_tpu_torch.parallel.mesh import make_mesh_from_spec, mesh_axes
+    from atmonr_tpu_torch.training.multi import train_granules
+
+    config, ds, paths = ctx["config"], ctx["ds"], {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{root}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh_from_spec("data=1")
+
+            def trainer(name, seed=0, dataset=ds, **over):
+                pipe = get_pipeline(config["pipeline"], dataset)
+                tcfg = dict(config["trainer"], **over)
+                return Trainer(tcfg, dataset, pipe, name, data_root=root, seed=seed)
+
+            # ---- 1. the data-sharded flagship against the unsharded one ----
+            plain, sharded = trainer("plain"), trainer("mesh")
+            sharded.shard(mesh)
+            perm = torch.randperm(sharded.rank_rays, device=ds.device,
+                                  generator=torch.Generator(ds.device).manual_seed(5))
+            gen = torch.Generator(ds.device).manual_seed(6)
+            batches = [(perm[i * BATCH:(i + 1) * BATCH],
+                        plain.pipeline.make_draws(BATCH, gen)) for i in range(MULTI_STEPS)]
+            reset_counts()
+            want = torch.stack([plain.step(idx, draws) for idx, draws in batches]).cpu()
+            plain_counts = read_counts()
+            # ---- the main path: counts reset just before, read just after ----
+            reset_counts()
+            got = torch.stack([sharded.step(idx, draws) for idx, draws in batches]).cpu()
+            paths["multi-device data=1"] = read_counts()
+            # ---- end of the main path ----
+            rel = _table_rel_l2(sharded.pipeline, plain.pipeline)
+            log(f"[multi data=1] {MULTI_STEPS} steps of {BATCH} rays on an NCCL mesh of one "
+                f"rank against the unsharded Trainer, same rays and draws: losses "
+                f"{[round(float(x), 6) for x in got]}, max rel diff "
+                f"{float(((got - want).abs() / want.abs()).max()):.3g}; hash tables' relative "
+                f"L2 {', '.join(f'{k} {v:.3g}' for k, v in rel.items())}; launches "
+                f"{show(paths['multi-device data=1'])} (unsharded {show(plain_counts)})")
+            if not torch.allclose(got, want, rtol=1e-5, atol=0):
+                raise RuntimeError(f"sharded losses {got} differ from the unsharded {want}")
+            if max(rel.values()) > MULTI_TABLE_REL_L2:
+                raise RuntimeError(f"sharded tables differ from the unsharded ones: {rel}")
+            if launched(paths["multi-device data=1"]) != launched(plain_counts) or \
+                    launched(plain_counts) != step_counts("q8", MULTI_STEPS):
+                raise RuntimeError("the sharded step's launches differ from the unsharded one's")
+            sh, pl = [], []
+            for _ in range(MULTI_BLOCKS // 2):  # unsharded, sharded, sharded, unsharded
+                pl += steady_step_s(plain, 1, BLOCK)
+                sh += steady_step_s(sharded, 2, BLOCK)
+                pl += steady_step_s(plain, 1, BLOCK)
+            log(f"[steady] multi data=1 train step of {BATCH} rays, {MULTI_BLOCKS} blocks of "
+                f"{BLOCK} steps each, in turns (unsharded, sharded, sharded, unsharded): sharded "
+                f"median "
+                f"{statistics.median(sh) * 1e3:.2f} ms (min {min(sh) * 1e3:.2f}, max "
+                f"{max(sh) * 1e3:.2f}), unsharded {statistics.median(pl) * 1e3:.2f} ms (min "
+                f"{min(pl) * 1e3:.2f}, max {max(pl) * 1e3:.2f}), on {card}")
+            # the host cost of DeviceMesh's accessors, which the Trainer
+            # reads once, at shard (mesh_axes), not on every step
+            cost = {}
+            for what, fn in (("mesh.mesh", lambda: mesh.mesh), ("mesh.shape", lambda: mesh.shape),
+                             ("get_local_rank", lambda: mesh.get_local_rank("data")),
+                             ("mesh_axes", lambda: mesh_axes(mesh))):
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                cost[what] = (time.perf_counter() - t0) / 200 * 1e6
+            log(f"[multi data=1] host us a call, DeviceMesh accessors: "
+                f"{', '.join(f'{k} {v:.1f}' for k, v in cost.items())}, on {card}")
+            idx, draws = batches[0]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sharded.step(idx, draws)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            log_profile(prof, "multi data=1 train step", statistics.median(sh) * 1e6, wall_us,
+                        card, top=6)
+            # the step skips the gradient all-reduce on an axis of one rank:
+            # here is what one costs, on the same flat buffer (the gradient
+            # and the loss), over the data group
+            flat = torch.zeros(sum(p.numel() for p in sharded.pipeline.parameters()) + 1,
+                               device=ds.device)
+            group = mesh.get_group("data")
+            dist.all_reduce(flat, group=group)  # the communicator's set-up
+            torch.cuda.synchronize()
+            host_us = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                dist.all_reduce(flat, group=group)
+                host_us.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                dist.all_reduce(flat, group=group)
+                torch.cuda.synchronize()
+            nccl = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.device_time_total > 0]
+            log(f"[profile] multi data=1 gradient all-reduce of {flat.numel()} floats over an "
+                f"NCCL group of one rank (the step skips it there): device "
+                f"{sum(e.device_time_total for e in nccl):.1f} us in {len(nccl)} kernels "
+                f"({', '.join(sorted({e.name[:50] for e in nccl})) or 'none'}); host median "
+                f"{statistics.median(host_us):.1f} us a call (min {min(host_us):.1f}), on {card}")
+            del plain, sharded, batches, flat
+            torch.cuda.empty_cache()
+
+            # ---- 2. two granules on the one card ----
+            granules = [trainer(f"granule{g}", seed=g, dataset=get_dataset(
+                config["dataset"], SCENE), num_iters=GRANULE_STEPS) for g in range(2)]
+            losses = [[] for _ in granules]
+            for t, record in zip(granules, losses):
+                def step(*args, _step=t.step, _record=record, **kwargs):
+                    _record.append(_step(*args, **kwargs))
+                    return _record[-1]
+                t.step = step
+                t.place(torch.device("cuda", torch.cuda.current_device()))
+            outs = [Path(root) / f"granule_{g}" for g in range(2)]
+            torch.cuda.synchronize()
+            # ---- the main path: counts reset just before, read just after ----
+            reset_counts()
+            t0 = time.perf_counter()
+            train_granules(granules, outs)
+            torch.cuda.synchronize()
+            both_s = time.perf_counter() - t0
+            paths["multi-device granules"] = read_counts()
+            # ---- end of the main path ----
+            # two lone Trainers of seed 0: the second gives the spread of the
+            # tables between two runs of the same steps (K2's float atomics)
+            lones, lone_s = [], []
+            for k in range(2):
+                lones.append(trainer(f"lone{k}", seed=0, num_iters=GRANULE_STEPS,
+                                     dataset=get_dataset(config["dataset"], SCENE)))
+                reset_counts()
+                t0 = time.perf_counter()
+                lones[-1].train(Path(root) / f"lone{k}")
+                torch.cuda.synchronize()
+                lone_s.append(time.perf_counter() - t0)
+                lone_counts = read_counts()
+            q = GRANULE_STEPS // 4
+            for g, record in enumerate(losses):
+                loss = torch.stack(record).cpu()
+                first, last = float(loss[:q].mean()), float(loss[-q:].mean())
+                log(f"[multi granules] granule {g}: {len(loss)} steps, loss first quarter "
+                    f"{first:.4f}, last quarter {last:.4f}, {granules[g].epoch_idx} epochs")
+                if not (bool(torch.isfinite(loss).all()) and last < first):
+                    raise RuntimeError(f"granule {g}'s loss did not fall: {first} -> {last}")
+            rel = _table_rel_l2(granules[0].pipeline, lones[0].pipeline)
+            spread = _table_rel_l2(lones[1].pipeline, lones[0].pipeline)
+            bound = {k: max(MULTI_TABLE_REL_L2, GRANULE_SPREADS * v) for k, v in spread.items()}
+            want = {k: 2 * n for k, n in launched(lone_counts).items()}
+            rays = GRANULE_STEPS * BATCH
+            log(f"[multi granules] 2 granules x {GRANULE_STEPS} steps of {BATCH} rays through "
+                f"train_granules on one card in {both_s:.2f} s = {2 * rays / both_s:.0f} rays/s "
+                f"together; a lone Trainer {lone_s[0]:.2f}, {lone_s[1]:.2f} s = "
+                f"{rays / lone_s[0]:.0f}, {rays / lone_s[1]:.0f} rays/s (all with epoch ends "
+                f"and checkpoints), on {card}; tables' relative L2, granule 0 against a lone "
+                f"Trainer of seed 0: {', '.join(f'{k} {v:.3g}' for k, v in rel.items())}; "
+                f"two lone Trainers of seed 0: "
+                f"{', '.join(f'{k} {v:.3g}' for k, v in spread.items())}; launches "
+                f"{show(paths['multi-device granules'])}")
+            if launched(paths["multi-device granules"]) != want:
+                raise RuntimeError(f"granule launches {show(paths['multi-device granules'])}, "
+                                   f"expected twice the lone Trainer's {show(lone_counts)}")
+            if any(rel[k] > bound[k] for k in rel):
+                raise RuntimeError(f"granule 0 differs from the lone Trainer by {rel}, more than "
+                                   f"{bound}")
+            del granules, lones
+            torch.cuda.empty_cache()
+
+            # ---- 3. the extraction over the mesh ----
+            grid, pipe = ctx["voxelgrid"], ctx["extract_pipe"]
+            t0 = time.perf_counter()
+            one = run_extraction(pipe, grid, batch_size=EXTRACT_BATCH)
+            one_s = time.perf_counter() - t0
+            # ---- the main path: counts reset just before, read just after ----
+            reset_counts()
+            t0 = time.perf_counter()
+            sigma = run_extraction(pipe, grid, batch_size=EXTRACT_BATCH, mesh=mesh)
+            query_s = time.perf_counter() - t0
+            paths["multi-device extract"] = read_counts()
+            # ---- end of the main path ----
+            n = len(grid.xyz)
+            want = {("K1", "q8", 3): -(-n // EXTRACT_BATCH)}
+            log(f"[multi extract] run_extraction over the mesh of one rank, voxelgrid of {n} "
+                f"points in {query_s:.3f} s = {n / query_s:.0f} points/s (unsharded just before "
+                f"{one_s:.3f} s), on {card}; equal to the unsharded query bit for bit: "
+                f"{np.array_equal(sigma, one)}; launches {show(paths['multi-device extract'])}")
+            if not np.array_equal(sigma, one):
+                raise RuntimeError("the mesh's extraction differs from the unsharded one")
+            if launched(paths["multi-device extract"]) != want:
+                raise RuntimeError(f"extract launches {show(paths['multi-device extract'])}, "
+                                   f"expected {show(want)}")
+        finally:
+            dist.destroy_process_group()
+    log(f"[time] {time.perf_counter() - t_phase:.1f} s in the multi-device phase")
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -1763,6 +2025,8 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the NeRF path")
     paths.update(phase_include_height(ctx["ds"], smi))
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the NeRF and height paths")
+    paths.update(phase_multi_device(ctx, smi))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the multi-device phase")
     for row in rows:
         key = row.pop("key")
         row["launches_by_path"] = {path: c[key] for path, c in paths.items() if c[key]}

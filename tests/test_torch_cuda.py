@@ -453,3 +453,101 @@ def test_nerf_on_the_card(dev, tmp_path, monkeypatch):
     sigma = pipe.extract(torch.rand((1000, 3), device=dev) * 2 - 1)
     assert sigma.shape == (1000, 4) and sigma.is_cuda and float(sigma.min()) >= 0
     assert _moved(before) == ({}, {})
+
+
+def test_data_sharded_step_at_one_rank_over_nccl(dev, tmp_path):
+    """``Trainer.shard`` on a mesh of one rank over NCCL (a world of one
+    through a ``FileStore``): three steps on the same rays and draws as the
+    unsharded Trainer of the same seed give the same losses (rtol 1e-5) and
+    tables within a relative L2 of 1e-2 (K2's float atomics reorder sums,
+    and AdamW's first updates are lr * sign(g)), with the same K1 and K2
+    launches as the unsharded step (the refresh of step 2 in both)."""
+    import torch.distributed as dist
+
+    from atmonr_tpu_torch.parallel.mesh import make_mesh_from_spec
+
+    plain = _small_trainer(tmp_path / "plain", dev)
+    sharded = _small_trainer(tmp_path / "mesh", dev)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        sharded.shard(make_mesh_from_spec("data=1"))
+        idx = torch.arange(250, device=dev)
+        moved = []
+        for _ in range(3):
+            draws = plain.pipeline.make_draws(250, plain.generators["draws"])
+            before = _launches()
+            a = plain.step(idx, draws)
+            moved.append(_moved(before))
+            before = _launches()
+            b = sharded.step(idx, draws)
+            moved.append(_moved(before))
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=0)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert moved[0::2] == moved[1::2] and moved[0][1]
+    for name, p in plain.pipeline.state_dict().items():
+        q = sharded.pipeline.state_dict()[name]
+        rel = float(torch.linalg.vector_norm(q - p) / torch.linalg.vector_norm(p))
+        assert rel <= 1e-2, (name, rel)
+
+
+def _card_mesh_config() -> dict:
+    """``_small_trainer``'s q8 config with 8 fine samples (they split over 2
+    and 4 sample ranks)."""
+    grid = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+            "log2_hashmap_size": 9, "per_level_scale": 1.5, "fwd_mode": "q8"}
+    sh = {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 2}
+    net = {"n_neurons": 16, "n_hidden_layers": 1}
+    return {
+        "dataset": {"type": "HARP2", "max_abs_view_angle": 45.0, "ray_origin_height": 20000,
+                    "bands_to_keep": [0, 1, 2, 3], "rgb_mode": "nadir"},
+        "pipeline": {
+            "type": "InstantNGP", "include_height": False, "point_preprocessor": "horizontal",
+            "num_bands": 4, "multi_band_extinction": False, "alt_compress_factor": 8,
+            "loss": "mse_plus_hdr", "num_samples_per_ray": 16,
+            "instant_ngp": {
+                "encoding": dict(grid, base_resolution=4, stochastic_rounding=True),
+                "network": net, "rgb_network": net, "surface_network": net,
+                "dir_encoding": {"otype": "Composite", "nested": [sh, {"otype": "Identity"}]},
+                "surface_encoding": {"otype": "Composite", "nested": [
+                    dict(grid, n_dims_to_encode=2, base_resolution=16), sh]},
+            },
+            "occupancy": {"resolution": [8, 8, 4], "n_probe": 8, "n_fine": 8,
+                          "update_every": 2},
+        },
+        "trainer": {
+            "batch_size": 512, "num_iters": 8, "print_frequency": 2,
+            "optimizer": {"lr": 0.01, "betas": [0.9, 0.99], "eps": 1e-15,
+                          "weight_decay": 0.01, "clip_global_norm": 1.0},
+            "scheduler": {"type": "fixed", "gamma": 0.33, "decay_start": 4,
+                          "decay_interval": 2},
+        },
+    }
+
+
+def test_meshes_across_cards_over_nccl(dev, tmp_path):
+    """On every card of the machine (two or more), one NCCL rank each: the
+    sample-sharded forward on mesh 1 x N and (N / 2) x 2 with K1 and K2,
+    whose gradients after ``reduce_gradients`` (NCCL's reduce-scatter in
+    the backward of the masked prefix) lie within 1e-3 relative L2 of the
+    unsharded step's on the same rays and the loss within rtol 1e-5; then a
+    ``Trainer`` on mesh data=N: 4 steps leave every card's parameters equal
+    bit for bit. The CPU tests hold the same paths over gloo."""
+    import _torch_ranks as ranks
+
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        pytest.skip(f"needs an even number of cards, two or more ({n} here)")
+    from atmonr_tpu_torch import _build
+
+    _build.build_all(("hash_gather", "hash_bwd"))  # once, before the ranks load them
+    out = ranks.spawn(n, tmp_path, ranks.card_mesh_ranks, _card_mesh_config(), str(tmp_path),
+                      backend="nccl")
+    for r in out:
+        assert r["trained_equal"]
+        for shape in ((1, n), (n // 2, 2)):
+            got = r[shape]
+            assert abs(got["loss"] - r["ref_loss"]) <= 1e-5 * abs(r["ref_loss"]), (shape, got)
+            assert max(got["rel_l2"].values()) < 1e-3, (shape, got["rel_l2"])

@@ -444,9 +444,14 @@ def test_restore_params_loads_the_latest_checkpoint(datasets, tmp_path):
 
 
 def test_extract_cli_refuses_mesh_and_bad_steps(tmp_path):
-    base = ["--exp-name", "x", "--extract-filename", "x.nc", "--data-root", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A ``--mesh`` larger than the world (one process here) raises naming
+    the torchrun line, and leaves no process group behind; bad steps exit
+    through the parser."""
+    base = ["--exp-name", "x", "--extract-filename", "x.nc", "--data-root", str(tmp_path),
+            "--device", "cpu"]
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         extract_cli.main(base + ["--coord-mode", "l1c", "--mesh", "data=4"])
+    assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit):
         extract_cli.main(base + ["--coord-mode", "l1c", "--alt-step", "0"])
     with pytest.raises(SystemExit):

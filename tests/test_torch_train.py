@@ -13,6 +13,7 @@ side calls the Pallas q8 kernel in interpret mode; its backward is, on the
 CPU, JAX's exact f32 scatter.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -809,18 +810,91 @@ def test_check_numerics_names_the_step(tmp_path):
         tr.step(idx)
 
 
+@contextlib.contextmanager
+def _world_of_one():
+    """A gloo process group of this one process, left again at the end."""
+    from atmonr_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed("cpu")
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def test_multi_device_entry_points_raise(tmp_path):
-    tr = _make_trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.shard(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.place("cuda:1")
-    base = ["--exp-name", "x", "--config-path", "c.json", "--data-root", str(tmp_path)]
-    for extra in (["--scene-filename", SCENE, "--mesh", "data=4"],
-                  ["--scene-filename", SCENE, "--distributed"],
-                  ["--scene-filename", f"{SCENE},{SCENE}"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_cli.main(base + extra)
+    """What the multi-device entry points refuse: a mesh larger than the
+    world (naming the torchrun line, and leaving no process group behind),
+    a mesh without a process group, ``check_numerics`` under a mesh (as the
+    JAX package does), and ``place`` across device types or without a
+    card."""
+    from atmonr_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        train_cli.main(_cli_args(tmp_path, "--mesh", "data=4"))
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        train_cli.main(_cli_args(tmp_path, "--mesh", "data=1,sample=2", "--distributed"))
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh()
+    tr = _make_trainer(tmp_path, check_numerics=True)
+    with _world_of_one():
+        with pytest.raises(ValueError, match="check_numerics"):
+            tr.shard(make_mesh())
+    with pytest.raises(ValueError, match="one type"):
+        tr.place("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tr.place("cuda:1")
+
+
+def test_shard_at_one_rank_is_the_unsharded_trainer(tmp_path):
+    """``Trainer.shard`` on a mesh of one rank (gloo here; the card's check
+    runs it over NCCL): the same steps as the unsharded Trainer of the same
+    seed, bit for bit on the CPU (the all-reduce of one rank changes
+    nothing): explicit batches and draws, then the Trainers' own streams
+    through ``train``, the progress buffers and the checkpoints."""
+    from atmonr_tpu_torch.parallel.mesh import make_mesh
+
+    plain = _make_trainer(tmp_path / "plain", name="plain", batch_size=256, num_iters=8)
+    sharded = _make_trainer(tmp_path / "mesh", name="mesh", batch_size=256, num_iters=8)
+    with _world_of_one():
+        sharded.shard(make_mesh())
+        assert (sharded.num_rays, sharded.rank_batch) == (plain.num_rays, plain.batch_size)
+        idx = torch.arange(256)
+        draws = plain.pipeline.make_draws(256, torch.Generator().manual_seed(4))
+        for _ in range(2):
+            assert torch.equal(plain.step(idx, draws), sharded.step(idx, draws))
+        plain.train(tmp_path / "plain" / "out")
+        sharded.train(tmp_path / "mesh" / "out")
+    assert torch.equal(plain.progress_pixels, sharded.progress_pixels)
+    a, b = plain.pipeline.state_dict(), sharded.pipeline.state_dict()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    saved = [tckpt.restore_checkpoint(tmp_path / t / "out")[0] for t in ("plain", "mesh")]
+    assert saved[1]["iter_count"] == saved[0]["iter_count"] == 8
+    assert torch.equal(saved[1]["draws_by_data_index"][0], saved[0]["generators"]["draws"])
+
+
+def test_train_and_extract_clis_with_a_mesh_of_one(tmp_path):
+    """``train --mesh data=1`` and ``extract --mesh data=1`` in one process
+    (a world of one, joined and left by each CLI): the mesh's extraction is
+    the single-device one, bit for bit."""
+    from atmonr_tpu_torch.scripts import extract as extract_cli
+
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        (tr,) = train_cli.main(_cli_args(tmp_path, "--num-iters", "4", "--mesh", "data=1"))
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    assert tr.mesh is not None and tr.iter_count == 4
+    assert not torch.distributed.is_initialized()
+    base = ["--exp-name", "cli", "--coord-mode", "l1c", "--alt-step", "2000", "--data-root",
+            str(tmp_path), "--device", "cpu"]
+    one = extract_cli.main(base + ["--extract-filename", "one.nc"]).sigma
+    mesh = extract_cli.main(base + ["--extract-filename", "mesh.nc", "--mesh", "data=1"]).sigma
+    assert not torch.distributed.is_initialized()
+    assert one.shape[0] > 0 and np.array_equal(one, mesh)
 
 
 def test_trainer_and_cli_default_to_cuda(tmp_path, monkeypatch):
