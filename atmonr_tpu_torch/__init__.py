@@ -9,7 +9,11 @@ OpenVDB writers (``python -m atmonr_tpu_torch.scripts.extract``) and the
 orbit video (``python -m atmonr_tpu_torch.scripts.make_video``). The
 hash-encode forward over bf16, f32, int8 and float8 tables and the
 hash-table gradient are CUDA kernels for sm_90a
-(``csrc/``, built at first use). Several devices go through
+(``csrc/``, built at first use). The measurement entry points are
+``python -m atmonr_tpu_torch.bench`` (flagship train rays/s) and
+``python -m atmonr_tpu_torch.tools.<name>`` (``utils/benchmark.py``'s
+timing; the block fetch ``csrc/block_fetch.cu`` probes random-row gather
+bandwidth). Several devices go through
 ``torch.distributed`` (``parallel/``: the (data, sample) mesh, ``Trainer.shard``,
 ``extract --mesh``; ``training/multi.py``: one model per granule), one
 process per device under torchrun. Entry points run on ``cuda`` unless the

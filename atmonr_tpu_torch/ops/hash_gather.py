@@ -187,7 +187,6 @@ def hash_gather(
         return hash_gather_plain(table, scales, x, cfg)
     if x.device.type != "cuda":
         raise ValueError(f"no hash gather for device {x.device}")
-    fn = _kernel()
     plan = level_plan(cfg, x.shape[0], ROW_BYTES[mode], False)
     x = x.contiguous()
     table = table.contiguous()
@@ -197,9 +196,24 @@ def hash_gather(
     out = torch.empty((x.shape[0], cfg.n_output_dims), dtype=torch.float32, device=x.device)
     if x.shape[0] == 0:
         return out
+    launch_kernel(table, scales, x, out, cfg, mode, plan)
+    return out
+
+
+hash_gather.launches = {(mode, d): 0 for mode in KERNEL_MODES for d in (2, 3)}
+
+
+def launch_kernel(table, scales, x, out, cfg: HashGridConfig, mode: str, plan) -> None:
+    """One launch of the kernel into ``out`` on the current stream, as
+    ``plan`` (``level_plan`` of these points) takes the levels, with no check
+    and no allocation: the kernel body alone, which ``hash_gather`` wraps and
+    ``tools/diag_fwd_breakdown.py`` times. The caller gives what
+    ``hash_gather`` would: CUDA tensors, contiguous, the table 16-byte
+    aligned, ``out`` (M, L*2) float32. Each launch adds one to
+    ``hash_gather.launches[(mode, D)]``."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
+        err = _kernel()(
             x.data_ptr(), table.data_ptr(), None if scales is None else scales.data_ptr(),
             out.data_ptr(), x.shape[0], cfg.n_dims, cfg.n_levels, cfg.hashmap_size - 1,
             *level_args(cfg), _ELEM[mode],
@@ -208,10 +222,6 @@ def hash_gather(
     if err != 0:
         raise RuntimeError(f"hash_gather ({mode}) launch failed: CUDA error {err}")
     hash_gather.launches[(mode, cfg.n_dims)] += 1
-    return out
-
-
-hash_gather.launches = {(mode, d): 0 for mode in KERNEL_MODES for d in (2, 3)}
 
 
 class _HashEncode(torch.autograd.Function):

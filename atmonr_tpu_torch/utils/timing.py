@@ -1,8 +1,10 @@
-"""Device timing of a call on the current CUDA device."""
+"""Timing of a call: on the device (CUDA events, graph replay) and by the
+host's clock between syncs."""
 
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -46,3 +48,24 @@ def graph_ms(fn, per_graph: int = 20, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_graph)
     return statistics.median(times)
+
+
+def fence(device: torch.device) -> None:
+    """Wait for the work queued on ``device``: a synchronize on a card,
+    nothing on the CPU (its ops run as they are called)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def wall_s(fn, device: torch.device, iters: int, warm: int) -> float:
+    """Seconds a call by the host's clock, the host's launch work included:
+    ``warm`` calls, a sync, then ``iters`` calls between that sync and
+    another (the protocol of the JAX repo's timing tools)."""
+    for _ in range(warm):
+        fn()
+    fence(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    fence(device)
+    return (time.perf_counter() - t0) / iters

@@ -139,10 +139,23 @@ Phases, each of which raises on failure:
    combined rays/s); ``run_extraction`` over the mesh on the voxelgrid,
    equal to the unsharded query bit for bit. The collectives of more than
    one rank run in the CPU tests (gloo).
+10. Tools: the measurement entry points as a user runs them.
+   ``tools.bench_dma_gather`` at both table sizes, a table of 2^21 entries
+   (16 MiB, inside the L2) and the 21,141,696-entry table of
+   ``instant_ngp_occ21.json`` (169 MB, beyond it): among its curves kernel
+   T2 (the block fetch, ``csrc/block_fetch.cu``) at 1, 4 and 32 rows a run,
+   2^17 rows of 512 bytes a call, held to its plain version
+   (``torch.equal``) and timed beside it, ``index_select`` of the same rows
+   and its bound; these give T2's row of the kernels line. Then the port's bench
+   (``atmonr_tpu_torch.bench.main``: its JSON lines, beside phase 6's
+   ``[steady]`` rays/s), ``tools.profile_step`` on the flagship,
+   ``tools.diag_fwd_breakdown``, ``tools.bench_trainer`` over two timed
+   epochs and ``tools.bench_scaling`` at ``data=1`` (NCCL, one rank). Each
+   prints its own lines; ``[tools]`` lines sum them up.
 
 Each main path (phases 4-5, phase 6's training and each of its three
-grids, each configuration of phase 7, each path of phase 8 and of phase 9)
-has every
+grids, each configuration of phase 7, each path of phase 8 and of phase 9,
+and phase 10's tools) has every
 launch count set to 0 just before it and read just after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is the result, ``{"ok": true, "device": ...}``.
@@ -227,6 +240,15 @@ NERF_STEPS, NERF_COMPARE, HEIGHT_STEPS = 48, 512, 8
 # granule against one lone Trainer)
 MULTI_STEPS, MULTI_BLOCKS, GRANULE_STEPS = 4, 4, 32
 MULTI_TABLE_REL_L2, GRANULE_SPREADS = 0.02, 3.0
+# the tools phase: T2 (the block fetch) against its plain version on two
+# tables of 512-byte rows, 2^21 entries of two f32 features (16 MiB, inside
+# the 50 MB L2) and the 21,141,696 of configs/instant_ngp_occ21.json
+# (169 MB, beyond it), at the JAX tool's 2^17 rows a call
+T2_SOURCE = "atmonr_tpu_torch/csrc/block_fetch.cu"
+T2_REPLACES = "tools/bench_dma_gather.py:36"
+T2_TABLES = (("2^21 entries", 32_768), ("21,141,696 entries", 330_339))
+T2_RPDS = (1, 4, 32)
+SCALING_WARM_ITERS = 100  # bench_scaling's warm-up cap here (its own: 1,200)
 
 
 def log(msg: str) -> None:
@@ -265,22 +287,25 @@ def k2_bound(m: int, cfg) -> tuple[float, str, int]:
 
 
 def reset_counts() -> None:
+    from atmonr_tpu_torch.ops.block_fetch import block_fetch
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
     from atmonr_tpu_torch.ops.hash_gather import hash_gather
 
-    for counts in (hash_gather.launches, hash_bwd.launches):
+    for counts in (hash_gather.launches, hash_bwd.launches, block_fetch.launches):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts() -> dict:
-    """Every launch count, keyed as the kernel rows are: ("K1", mode, D)
-    and ("K2", None, D)."""
+    """Every launch count, keyed as the kernel rows are: ("K1", mode, D),
+    ("K2", None, D) and ("T2", None, rows a descriptor)."""
+    from atmonr_tpu_torch.ops.block_fetch import block_fetch
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
     from atmonr_tpu_torch.ops.hash_gather import hash_gather
 
     counts = {("K1", mode, d): n for (mode, d), n in hash_gather.launches.items()}
     counts.update({("K2", None, d): n for d, n in hash_bwd.launches.items()})
+    counts.update({("T2", None, rpd): n for rpd, n in block_fetch.launches.items()})
     return counts
 
 
@@ -291,7 +316,8 @@ def launched(counts: dict) -> dict:
 
 def show(counts: dict) -> str:
     return ", ".join(
-        f"{k[0]}{' ' + k[1] if k[1] else ''} D={k[2]} x{n}" for k, n in sorted(
+        f"{k[0]}{' ' + k[1] if k[1] else ''} {'rpd' if k[0] == 'T2' else 'D'}={k[2]} x{n}"
+        for k, n in sorted(
             launched(counts).items(), key=lambda kv: (kv[0][0], str(kv[0][1]), -kv[0][2]))
     ) or "none"
 
@@ -342,7 +368,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         host = pool.submit(build_host)
-        built = _build.build_all(("hash_gather", "hash_bwd"), verbose=True)
+        built = _build.build_all(("hash_gather", "hash_bwd", "block_fetch"), verbose=True)
         host_path, host_report, host_s = host.result()
     log(f"[build] {len(built)} CUDA libraries, one nvcc each, and the host library, all "
         f"together in {time.perf_counter() - t0:.2f} s")
@@ -798,6 +824,7 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
     log(f"[steady] train step of {BATCH} rays (median of 8 blocks of {BLOCK} steps, one "
         f"refresh in each): {med * 1e3:.2f} ms = {BATCH / med:.0f} rays/s, min "
         f"{min(steady) * 1e3:.2f}, max {max(steady) * 1e3:.2f} ms, on {card}")
+    ctx["steady_rays_s"] = BATCH / med
     before = read_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1999,6 +2026,88 @@ def phase_multi_device(ctx: dict, card: str) -> dict:
     return paths
 
 
+def t2_row(dma: dict) -> dict:
+    """T2's row of the kernels line from ``tools.bench_dma_gather``'s results
+    on ``T2_TABLES``: its own numbers those of single rows from beyond the L2,
+    as K1 gathers them at 2^21, and every table and ``rpd`` under
+    ``shapes``."""
+    shapes = []
+    for label, tile_rows in T2_TABLES:
+        by_name = {r["name"]: r for r in dma[label]["results"]}
+        for rpd in T2_RPDS:
+            r = by_name[f"block_fetch_{rpd}tile"]
+            shapes.append({"tile_rows": tile_rows, "rpd": rpd, "max_abs_err": r["max_abs_err"],
+                           "ms": r["device_ms"], "call_ms": r["ms"], "plain_ms": r["plain_ms"],
+                           "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                           "bound_by": r["bound_by"]})
+    main_shape = next(r for r in shapes if r["tile_rows"] == T2_TABLES[1][1] and r["rpd"] == 1)
+    return {
+        "name": "block_fetch (T2, 512-byte rows, 1 row a run, 330,339-row table)",
+        "route": "cuda", "source": T2_SOURCE, "replaces": T2_REPLACES,
+        "key": [("T2", None, rpd) for rpd in T2_RPDS], "launches": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes), "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
+        "shapes": shapes,
+    }
+
+
+def phase_tools(ctx: dict, card: str, rows: list[dict]) -> dict:
+    """The tools path, every count set to 0 just before it and read just
+    after: ``tools.bench_dma_gather`` on both ``T2_TABLES`` (which holds T2
+    to its plain version at ``T2_RPDS`` and times it: T2's row of the kernels
+    line), the port's bench
+    (``atmonr_tpu_torch.bench.main`` with its own constants), ``profile_step``
+    on the flagship, ``diag_fwd_breakdown``, ``bench_trainer`` over two
+    timed epochs and ``bench_scaling`` at ``data=1`` (NCCL, one rank).
+    Returns the counts by path."""
+    from atmonr_tpu_torch import bench
+    from atmonr_tpu_torch.tools import (
+        bench_dma_gather, bench_scaling, bench_trainer, diag_fwd_breakdown, profile_step,
+    )
+
+    t_phase = time.perf_counter()
+    # ---- the tools path: counts reset just before, read just after ----
+    reset_counts()
+    dma = {label: bench_dma_gather.main(["--tile-rows", str(tile_rows)])
+           for label, tile_rows in T2_TABLES}
+    rays_s = bench.main()
+    stages = profile_step.main([str(CONFIG.relative_to(REPO))])
+    diag = diag_fwd_breakdown.main()
+    trainer = bench_trainer.main(["epochs=2"])
+    scaling = bench_scaling.main(["data=1"], max_warm_iters=SCALING_WARM_ITERS)
+    counts = read_counts()
+    # ---- end of the tools path ----
+
+    log(f"[tools] launches on the tools path: {show(counts)}")
+    rows.append(t2_row(dma))
+    for k in [("T2", None, rpd) for rpd in T2_RPDS] + [("K1", "q8", 3), ("K2", None, 3)]:
+        if not counts[k]:
+            raise RuntimeError(f"{k} was not launched on the tools path")
+    for label, out in dma.items():
+        by_name = {r["name"]: r for r in out["results"]}
+        wide = by_name["index_select_f32_row512B"]
+        wide_gb = wide["rows_per_s"] * (2 * 512 + 4) / 1e9
+        fetch = ", ".join(f"rpd {rpd} {by_name[f'block_fetch_{rpd}tile']['gb_per_s']:.1f} GB/s"
+                          for rpd in T2_RPDS)
+        log(f"[tools] {label} ({out['table_rows'] * 8 / 1e6:.1f} MB table): index_select of "
+            f"512-byte rows {wide_gb:.1f} GB/s per call with launch; block fetch device "
+            f"{fetch}; beside 3.35 TB/s, on {card}")
+    steady = ctx.get("steady_rays_s")
+    log(f"[tools] the port's bench {rays_s:.0f} rays/s (its last JSON line above) beside the "
+        f"flagship Trainer's [steady] {steady:.0f} rays/s: {rays_s / steady:.3f}x, on {card}")
+    q8 = diag["q8 prepare_table noise"]["device_ms"] / diag["q8 hash_encode"]["device_ms"]
+    log(f"[tools] profile_step: encode fwd {stages['encode_fwd'] * 1e3:.2f} ms, fwd+bwd "
+        f"{stages['encode_fwd_bwd'] * 1e3:.2f}, forward {stages['forward'] * 1e3:.2f}, grad "
+        f"{stages['grad'] * 1e3:.2f}, step {stages['step'] * 1e3:.2f}; q8 quantizer with noise "
+        f"{q8:.1%} of a q8 encode's device time (diag_fwd_breakdown); bench_trainer in-epoch "
+        f"{trainer['in_epoch_rays_per_s']:.0f}, overall {trainer['overall_rays_per_s']:.0f} "
+        f"rays/s, epoch end {trainer['epoch_sync_s']:.3f} s; bench_scaling data=1 "
+        f"{scaling['data=1']:.0f} rays/s")
+    log(f"[time] {time.perf_counter() - t_phase:.1f} s in the tools phase")
+    return {"tools": counts}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2027,9 +2136,13 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the NeRF and height paths")
     paths.update(phase_multi_device(ctx, smi))
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the multi-device phase")
+    paths.update(phase_tools(ctx, smi, rows))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the tools phase")
     for row in rows:
-        key = row.pop("key")
-        row["launches_by_path"] = {path: c[key] for path, c in paths.items() if c[key]}
+        keys = row.pop("key")
+        keys = keys if isinstance(keys, list) else [keys]
+        row["launches_by_path"] = {path: sum(c[k] for k in keys) for path, c in paths.items()
+                                   if sum(c[k] for k in keys)}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] == 0:
             raise RuntimeError(f"{row['name']} was never launched on a main path")

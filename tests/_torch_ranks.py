@@ -321,6 +321,16 @@ def card_mesh_ranks(rank: int, world: int, config: dict, root: str) -> dict:
     return out
 
 
+def scaling_ranks(rank: int, world: int, granule: dict) -> dict:
+    """``tools.bench_scaling.main`` over the world's gloo group at
+    ``data=1`` (rank 0 alone) and ``data=2`` (both ranks), a few steps at a
+    small size; this rank's rays/s by spec."""
+    from atmonr_tpu_torch.tools import bench_scaling
+
+    return bench_scaling.main(["data=1", "data=2"], device="cpu", iters=2, granule=granule,
+                              base_batch=64, max_warm_iters=2, warm_block=1)
+
+
 # -- under torchrun ------------------------------------------------------------------------
 
 

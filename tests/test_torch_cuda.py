@@ -1,5 +1,6 @@
-"""Kernels K1 (``csrc/hash_gather.cu``) and K2 (``csrc/hash_bwd.cu``) against
-their plain PyTorch versions, on the card, and the paths that take no kernel
+"""Kernels K1 (``csrc/hash_gather.cu``), K2 (``csrc/hash_bwd.cu``) and T2
+(``csrc/block_fetch.cu``) against their plain PyTorch versions, on the card,
+and the paths that take no kernel
 (the NeRF pipeline, the pair-bucket and 4-D position grids) there against
 the CPU. These tests need CUDA and ``nvcc``; they skip where there is no
 card. The file imports nothing of JAX, so it also runs where JAX is not
@@ -551,3 +552,74 @@ def test_meshes_across_cards_over_nccl(dev, tmp_path):
             got = r[shape]
             assert abs(got["loss"] - r["ref_loss"]) <= 1e-5 * abs(r["ref_loss"]), (shape, got)
             assert max(got["rel_l2"].values()) < 1e-3, (shape, got["rel_l2"])
+
+
+# -- kernel T2, the block fetch ------------------------------------------------------------
+
+
+def _fetch_inputs(dev, tile_rows, n_desc, rpd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles = torch.randn((tile_rows, 128), generator=gen, device=dev)
+    idx = torch.randint(0, tile_rows - rpd, (n_desc,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return tiles, idx
+
+
+@pytest.mark.parametrize("tile_rows,n_desc", [(300, 512), (330_339, 4096), (300, 256)])
+@pytest.mark.parametrize("rpd", [1, 4, 32])
+def test_block_fetch_equals_plain(dev, rpd, tile_rows, n_desc):
+    """T2 copies the rows bit for bit (``torch.equal``), inside the L2 and
+    beyond it; one launch a call."""
+    from atmonr_tpu_torch.ops import block_fetch as bfo
+
+    tiles, idx = _fetch_inputs(dev, tile_rows, n_desc, rpd, rpd)
+    before = bfo.block_fetch.launches[rpd]
+    got = bfo.block_fetch(tiles, idx, rpd)
+    torch.cuda.synchronize()
+    assert bfo.block_fetch.launches[rpd] == before + 1
+    assert got.shape == (n_desc * rpd, 128)
+    assert torch.equal(got, bfo.block_fetch_plain(tiles, idx, rpd))
+
+
+@pytest.mark.parametrize("n_desc", [1, 5, 7])
+def test_block_fetch_kernel_copies_a_tail_of_rows(dev, n_desc):
+    """The kernel at a row count that is no multiple of a warp's 4 rows in
+    flight (below the wrapper's 256 runs, so launched directly)."""
+    from atmonr_tpu_torch.ops import block_fetch as bfo
+
+    tiles, idx = _fetch_inputs(dev, 300, n_desc, 1, n_desc)
+    got = torch.full((n_desc, 128), float("nan"), device=dev)
+    err = bfo._kernel()(tiles.data_ptr(), idx.data_ptr(), got.data_ptr(), 300, n_desc, 1,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(got, bfo.block_fetch_plain(tiles, idx, 1))
+
+
+def test_block_fetch_reads_no_row_outside_the_table(dev):
+    """A run that would leave the table is not read: its rows come out NaN,
+    every other run as the plain version's."""
+    from atmonr_tpu_torch.ops import block_fetch as bfo
+
+    tiles, idx = _fetch_inputs(dev, 300, 256, 4, 3)
+    idx[7], idx[100] = -1, 297
+    got = bfo.block_fetch(tiles, idx, 4)
+    torch.cuda.synchronize()
+    bad = torch.zeros(256, dtype=torch.bool, device=dev)
+    bad[[7, 100]] = True
+    runs = got.reshape(256, 4, 128)
+    assert bool(torch.isnan(runs[bad]).all()) and not bool(torch.isnan(runs[~bad]).any())
+    ok = idx.clone()
+    ok[bad] = 0
+    assert torch.equal(runs[~bad], bfo.block_fetch_plain(tiles, ok, 4).reshape(256, 4, 128)[~bad])
+
+
+def test_block_fetch_rejects_bad_inputs(dev):
+    from atmonr_tpu_torch.ops import block_fetch as bfo
+
+    tiles, idx = _fetch_inputs(dev, 300, 256, 1, 4)
+    shifted = tiles.reshape(-1)[1:1 + 299 * 128].view(299, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        bfo.block_fetch(shifted, idx, 1)
+    with pytest.raises(ValueError, match="one device"):
+        bfo.block_fetch(tiles, idx.cpu(), 1)
