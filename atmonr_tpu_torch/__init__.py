@@ -13,7 +13,9 @@ hash-table gradient are CUDA kernels for sm_90a
 ``python -m atmonr_tpu_torch.bench`` (flagship train rays/s) and
 ``python -m atmonr_tpu_torch.tools.<name>`` (``utils/benchmark.py``'s
 timing; the block fetch ``csrc/block_fetch.cu`` probes random-row gather
-bandwidth). Several devices go through
+bandwidth), among them the quality harness (``tools/ab_importance.py``:
+matched-wall-clock training and PSNR/SSIM over every ray) and the
+real-granule-scale demo and quality A/B. Several devices go through
 ``torch.distributed`` (``parallel/``: the (data, sample) mesh, ``Trainer.shard``,
 ``extract --mesh``; ``training/multi.py``: one model per granule), one
 process per device under torchrun. Entry points run on ``cuda`` unless the

@@ -1,7 +1,8 @@
 """Ray-march samplers: stratified bins, the inverse CDF of coarse
-compositing weights (importance sampling), and the piecewise-constant
-inverse CDF behind the occupancy grid; and ``append_heights``, the
-ellipsoidal height as a 4th input channel.
+compositing weights (importance sampling), the piecewise-constant
+inverse CDF behind the occupancy grid and the surface-biased trapezoid
+pdf; and ``append_heights``, the ellipsoidal height as a 4th input
+channel.
 
 Counterpart of the JAX package's ``ops/samplers.py``. Randomness comes in
 as explicit draw tensors (``None`` selects the deterministic midpoint
@@ -158,6 +159,58 @@ def sample_piecewise(
     z_unit = (below.to(cdf.dtype) + torch.clamp(t_in_bin, 0.0, 1.0)) / n_bins
     z_vals = z_unit * ray_batch["len"][:, None]
     pts = ray_batch["origin"][:, None] + ray_batch["dir"][:, None] * z_vals[..., None]
+    return pts, z_vals
+
+
+def sample_biased_bins(
+    ray_batch: Mapping[str, torch.Tensor],
+    n_bins: int,
+    ray_origin_height: float,
+    alpha: float,
+    t_in_bin: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Surface-biased stratified sampling with a trapezoid pdf.
+
+    The unnormalized pdf rises linearly from ``alpha`` at the ray origin to
+    1 at the surface and is constant beyond; ``alpha == 1`` is the uniform
+    case. One sample per bin of the flat [0, 1] parameter, mapped through
+    the trapezoid's inverse CDF. Part of the public sampler API; no
+    pipeline uses it.
+
+    Args:
+        ray_batch: dict with "origin" (B, 3), "dir" (B, 3), "len" (B,).
+        n_bins: number of stratification bins.
+        ray_origin_height: the scene's ray-origin height (unused by the
+            math, as in the JAX package).
+        alpha: the pdf at the ray origin, in [0, 1].
+        t_in_bin: (B, n_bins) U[0,1) positions within the bins; or drawn
+            from ``generator``; the bin midpoints when both are None.
+
+    Returns:
+        pts: (B, n_bins, 3) sampled points. z_vals: (B, n_bins) distances.
+    """
+    if not 0.0 <= alpha <= 1.0:
+        raise ValueError(f"alpha must lie in [0, 1], got {alpha}")
+    origin = ray_batch["origin"]
+    b = origin.shape[0]
+    if generator is not None:
+        if t_in_bin is not None:
+            raise ValueError("pass t_in_bin or a generator, not both")
+        t_in_bin = torch.rand((b, n_bins), generator=generator, device=generator.device,
+                              dtype=origin.dtype).to(origin.device)
+    bins = _unit_bins(n_bins, origin.dtype, origin.device)[None]
+    z_flat = (bins + (0.5 if t_in_bin is None else t_in_bin) / n_bins).expand(b, n_bins)
+    if alpha == 1.0:
+        z_vals = torch.clamp(z_flat, max=1.0)
+    else:
+        norm_term = (alpha + 1.0) / 2.0
+        inv_cdf = (
+            -alpha + torch.sqrt(alpha**2 + 2.0 * (1.0 - alpha) * norm_term * z_flat)
+        ) / (1.0 - alpha)
+        z_vals = torch.where(z_flat <= 1.0, inv_cdf, torch.ones_like(z_flat))
+    z_vals = z_vals * ray_batch["len"][:, None]
+    pts = origin[:, None] + ray_batch["dir"][:, None] * z_vals[..., None]
     return pts, z_vals
 
 

@@ -251,13 +251,16 @@ class InstantNGPPipeline(Pipeline):
         return draws
 
     def _sample(
-        self, ray_batch: Mapping[str, torch.Tensor], draws: Mapping[str, torch.Tensor]
+        self, ray_batch: Mapping[str, torch.Tensor], draws: Mapping[str, torch.Tensor],
+        use_grid: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor, int]:
         """Sample positions along rays -> (pts, z_vals, n), by the config's
-        sampler: occupancy grid, importance or uniform. The importance
-        sampler's coarse pass evaluates the density branch (first density
-        output, no rounding noise); the caller switches autograd off."""
-        if self.occ_cfg is not None:
+        sampler: occupancy grid, importance or uniform; without ``use_grid``
+        an occupancy config takes the importance or uniform sampler (the JAX
+        package's forward without ``aux``). The importance sampler's coarse
+        pass evaluates the density branch (first density output, no rounding
+        noise); the caller switches autograd off."""
+        if self.occ_cfg is not None and use_grid:
             oc = self.occ_cfg
             pts_p, _ = sample_uniform_bins(ray_batch, oc.n_probe, draws.get("probe"))
             u = self._unit_coords(pts_p)
@@ -283,12 +286,13 @@ class InstantNGPPipeline(Pipeline):
         self,
         ray_batch: Mapping[str, torch.Tensor],
         draws: Mapping[str, torch.Tensor] | None = None,
+        use_grid: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """The sample positions of one forward: the (B*n, 3 or 4) inputs of
         the position hash encoder and the (B, n) depths. They depend on the rays,
         the draws and the occupancy grid (or, with the importance sampler,
         the density branch), and carry no gradient."""
-        pts, z_vals, _ = self._sample(ray_batch, draws or {})
+        pts, z_vals, _ = self._sample(ray_batch, draws or {}, use_grid)
         return torch.reshape(self._encoder_inputs(pts), (-1, self.num_inputs)), z_vals
 
     def forward(
@@ -296,6 +300,7 @@ class InstantNGPPipeline(Pipeline):
         ray_batch: Mapping[str, torch.Tensor],
         generator: torch.Generator | None = None,
         draws: Mapping[str, torch.Tensor] | None = None,
+        use_grid: bool = True,
     ) -> dict[str, torch.Tensor]:
         """One Instant-NGP render of a ray batch ("origin", "dir", "len").
 
@@ -303,15 +308,20 @@ class InstantNGPPipeline(Pipeline):
         ``generator`` nor ``draws`` is given; otherwise the draws of
         ``make_draws``, made from ``generator`` or passed in. Differentiable
         in the parameters; the occupancy grid and the sample positions carry
-        no gradient."""
+        no gradient. ``use_grid=False`` samples an occupancy config as the
+        JAX package's forward does without ``aux`` (its tools' eval): by the
+        importance sampler where configured, else ``num_samples_per_ray``
+        uniform bins; deterministic only (the draws follow the grid)."""
         b = ray_batch["origin"].shape[0]
         if generator is not None:
             if draws is not None:
                 raise ValueError("pass a generator or draws, not both")
             draws = self.make_draws(b, generator)
         draws = draws or {}
+        if draws and not use_grid and self.occ_cfg is not None:
+            raise ValueError("use_grid=False is deterministic: pass no draws")
         sr_noise = draws.get("sr_noise") if self.pos_sr else None
-        x, z_vals = self.sample_points(ray_batch, draws)
+        x, z_vals = self.sample_points(ray_batch, draws, use_grid)
         n = z_vals.shape[1]
         pts_surf = ray_batch["origin"] + ray_batch["dir"] * ray_batch["len"][:, None]
         pts_surf = (pts_surf + 1.0) / 2.0

@@ -20,15 +20,14 @@ card takes one rank: NCCL refuses two ranks on one card.
 from __future__ import annotations
 
 import sys
-from pathlib import Path
 
 import torch
 import torch.distributed as dist
 
+from atmonr_tpu_torch.tools import repo_path
 from atmonr_tpu_torch.utils.benchmark import timed_window, warm_until_steady
 
-REPO = Path(__file__).resolve().parent.parent.parent
-CONFIG = REPO / "configs" / "instant_ngp_tpu_occ13.json"
+CONFIG = repo_path("configs/instant_ngp_tpu_occ13.json")
 
 
 def run(spec: str, base_batch: int, device: torch.device, iters: int = 50,

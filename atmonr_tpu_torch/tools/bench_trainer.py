@@ -35,9 +35,9 @@ from pathlib import Path
 
 import torch
 
+from atmonr_tpu_torch.tools import repo_path
 from atmonr_tpu_torch.utils.timing import fence
 
-REPO = Path(__file__).resolve().parent.parent.parent
 REAL_GRANULE_RAYS = 14_600_000
 
 
@@ -72,7 +72,7 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
 
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    cfg = load_config(REPO / config_path if not Path(config_path).is_absolute() else config_path)
+    cfg = load_config(repo_path(config_path))
     granule = make_synthetic_granule(height=height, width=width, views_per_band=2)
     ds = HARP2Dataset(cfg["dataset"], granule, device=dev)
     pipe = get_pipeline(cfg["pipeline"], ds, device=dev)

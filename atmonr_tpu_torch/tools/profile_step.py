@@ -14,14 +14,48 @@ sync at both ends; the backward and the rest fall out by subtraction.
 from __future__ import annotations
 
 import sys
-from pathlib import Path
 
 import torch
 
+from atmonr_tpu_torch.tools import repo_path
 from atmonr_tpu_torch.utils.timing import wall_s
 
-REPO = Path(__file__).resolve().parent.parent.parent
 DEFAULT_CONFIG = "configs/instant_ngp_tpu.json"
+
+
+def stage_fns(pipe, opt, rays: dict, draws: dict, x: torch.Tensor) -> dict:
+    """The timed stages of a train step as callables: ``encode_fwd`` (the
+    position hash encode's forward alone on the points ``x``),
+    ``encode_fwd_bwd`` (its forward and table gradient), ``forward`` (the
+    pipeline forward of ``rays`` with ``draws``), ``grad`` (forward, loss
+    and backward) and ``step`` (the gradient and the optimizer ``opt``'s
+    update)."""
+    from atmonr_tpu_torch.models.hash_grid import hash_encode
+
+    table, cfg3 = pipe.pos_table, pipe.pos_cfg
+
+    def encode_fwd():
+        with torch.no_grad():
+            return hash_encode(table, x, cfg3)
+
+    def encode_fwd_bwd():
+        return torch.autograd.grad(torch.sum(hash_encode(table, x, cfg3) ** 2), table)
+
+    def forward():
+        with torch.no_grad():
+            return pipe(rays, draws=draws)
+
+    def grad():
+        pipe.zero_grad()
+        pipe.compute_loss(rays, pipe(rays, draws=draws)).backward()
+
+    def step():
+        opt.zero_grad()
+        pipe.compute_loss(rays, pipe(rays, draws=draws)).backward()
+        opt.step()
+
+    return {"encode_fwd": encode_fwd, "encode_fwd_bwd": encode_fwd_bwd, "forward": forward,
+            "grad": grad, "step": step}
 
 
 def main(argv: list[str] | None = None, *, device: str | torch.device | None = None,
@@ -32,13 +66,12 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     from atmonr_tpu_torch import get_pipeline, load_config
     from atmonr_tpu_torch.data.harp2 import HARP2Dataset
     from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
-    from atmonr_tpu_torch.models.hash_grid import hash_encode
     from atmonr_tpu_torch.utils.device import resolve_device
 
     argv = sys.argv[1:] if argv is None else argv
     cfg_path = argv[0] if argv else DEFAULT_CONFIG
     dev = resolve_device(device)
-    config = load_config(REPO / cfg_path if not Path(cfg_path).is_absolute() else cfg_path)
+    config = load_config(repo_path(cfg_path))
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"config: {cfg_path} on {name}")
     granule = make_synthetic_granule(**(granule or {"height": 48, "width": 24,
@@ -61,44 +94,15 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
         times[key] = t
         print(f"{label:32s}{t * 1e3:8.1f} ms", flush=True)
 
-    # 1. the hash encode's forward alone (M uniform points)
     x = torch.rand((m, cfg3.n_dims), generator=torch.Generator(device=dev).manual_seed(3),
                    device=dev)
-    table = pipe.pos_table
-
-    def enc_fwd():
-        with torch.no_grad():
-            return hash_encode(table, x, cfg3)
-
-    show("encode_fwd", f"hash-encode fwd ({m} pts):", wall_s(enc_fwd, dev, iters, warmup))
-
-    # 2. its forward and backward
-    def enc_grad():
-        return torch.autograd.grad(torch.sum(hash_encode(table, x, cfg3) ** 2), table)
-
-    show("encode_fwd_bwd", "hash-encode fwd+bwd:", wall_s(enc_grad, dev, iters, warmup))
-
-    # 3. the pipeline forward
-    def fwd():
-        with torch.no_grad():
-            return pipe(rays, draws=draws)
-
-    show("forward", "pipeline forward:", wall_s(fwd, dev, iters, warmup))
-
-    # 4. loss and gradient
-    def grad():
-        pipe.zero_grad()
-        pipe.compute_loss(rays, pipe(rays, draws=draws)).backward()
-
-    show("grad", "pipeline fwd+bwd (grad):", wall_s(grad, dev, iters, warmup))
-
-    # 5. the full train step: gradient and optimizer update
-    def step():
-        opt.zero_grad()
-        pipe.compute_loss(rays, pipe(rays, draws=draws)).backward()
-        opt.step()
-
-    show("step", "full train step:", wall_s(step, dev, iters, warmup))
+    fns = stage_fns(pipe, opt, rays, draws, x)
+    for key, label in (("encode_fwd", f"hash-encode fwd ({m} pts):"),
+                       ("encode_fwd_bwd", "hash-encode fwd+bwd:"),
+                       ("forward", "pipeline forward:"),
+                       ("grad", "pipeline fwd+bwd (grad):"),
+                       ("step", "full train step:")):
+        show(key, label, wall_s(fns[key], dev, iters, warmup))
     show("backward", "backward (grad - forward):", times["grad"] - times["forward"])
     show("update", "optimizer (step - grad):", times["step"] - times["grad"])
     print(f"{f'rays/s at B={b}:':32s}{b / times['step']:8.0f}", flush=True)

@@ -1,7 +1,9 @@
-"""Device choice for the port's entry points: the card unless the caller
-asks for another device."""
+"""Device choice for the port's entry points (the card unless the caller
+asks for another device), and the name of the device a result ran on."""
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -19,3 +21,22 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def describe_device(device: torch.device) -> str:
+    """The device a result was measured on: for a card, its name and power
+    limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them (the name alone where nvidia-smi does not answer); else the
+    device type."""
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(index)
+    return smi or torch.cuda.get_device_name(index)

@@ -152,10 +152,27 @@ Phases, each of which raises on failure:
    ``tools.diag_fwd_breakdown``, ``tools.bench_trainer`` over two timed
    epochs and ``tools.bench_scaling`` at ``data=1`` (NCCL, one rank). Each
    prints its own lines; ``[tools]`` lines sum them up.
+11. Quality and real scale: ``tools.real_scale_demo`` at its defaults from
+   memory (``source=memory``: the card's machine has no h5py), the
+   flagship unchanged on the 457 x 457-pixel, 90-view real-schema granule
+   with every one of its rays on the card (``[real scale]`` lines: the ray
+   count beside the JAX harness's 14,587,440, the ray store's MB, the build
+   seconds, 59 warm and 200 timed steps beside phase 6's ``[steady]``, peak
+   device memory, a 20 km / 2 km voxelgrid query); one
+   ``quality_real_scale`` cell of the flagship on that dataset
+   (``ab_importance.run``, 10 s, seed 0) scored over every ray (3,562
+   slices of 4,096) beside the same cell's initial parameters; then
+   ``tools.quality_matrix`` on ``occ13_32p24f`` and ``uniform128``, both
+   synthetic scenes, seed 0, 5 s a cell, each beside its untrained PSNR
+   (``[quality]`` lines). Every loss finite, every trained PSNR above its
+   untrained one, and each part's K1/K2 launches what its steps,
+   refreshes, extraction batches and eval slices imply (a count that
+   differs raises). K1 and K2 are then held to their plain versions at the
+   real-scale path's own points.
 
 Each main path (phases 4-5, phase 6's training and each of its three
 grids, each configuration of phase 7, each path of phase 8 and of phase 9,
-and phase 10's tools) has every
+phase 10's tools and phase 11's quality path) has every
 launch count set to 0 just before it and read just after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is the result, ``{"ok": true, "device": ...}``.
@@ -249,6 +266,15 @@ T2_REPLACES = "tools/bench_dma_gather.py:36"
 T2_TABLES = (("2^21 entries", 32_768), ("21,141,696 entries", 330_339))
 T2_RPDS = (1, 4, 32)
 SCALING_WARM_ITERS = 100  # bench_scaling's warm-up cap here (its own: 1,200)
+# the quality phase: the real-scale demo on the 457 x 457 x 90-view
+# real-schema granule from memory (the card's machine has no h5py) at its
+# defaults, one quality cell of the flagship on its dataset for
+# REAL_CELL_BUDGET seconds (its eval over every ray), and the quality
+# matrix's QM_VARIANTS on both scenes for QM_BUDGET seconds a cell, seed 0
+REAL_DEMO_ARGS = ["source=memory"]
+JAX_REAL_RAYS = 14_587_440  # the JAX real-scale harness's num_rays (docs/quality_real_scale.jsonl)
+REAL_CELL_BUDGET = 10.0
+QM_VARIANTS, QM_SCENES, QM_BUDGET = "occ13_32p24f,uniform128", "smooth,hard", 5.0
 
 
 def log(msg: str) -> None:
@@ -2108,6 +2134,144 @@ def phase_tools(ctx: dict, card: str, rows: list[dict]) -> dict:
     return {"tools": counts}
 
 
+def _cell_counts(mode: str, iters: int, refresh_every: int, slices: int) -> dict:
+    """The launches of one ``ab_importance.run`` cell: ``iters`` steps, one
+    refresh before the clock and one after every ``refresh_every``-th step
+    (none without a grid), and the eval's ``slices`` deterministic
+    forwards."""
+    refreshes = 1 + iters // refresh_every if refresh_every else 0
+    return step_counts(mode, iters, k1_d3_extra=refreshes + slices, k1_d2_extra=slices)
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in a.keys() | b.keys()}
+
+
+def _untrained(path: str, ds) -> tuple[dict, str, dict]:
+    """PSNR/SSIM of a cell's initial parameters (seed 0, as ``run`` draws
+    them) over every ray of ``ds``, the kernels' mode and the launches of
+    that eval."""
+    from atmonr_tpu_torch import get_pipeline, load_config
+    from atmonr_tpu_torch.models import hash_grid as hg
+    from atmonr_tpu_torch.tools import ab_importance, repo_path
+
+    cfg = load_config(repo_path(path))
+    pipe = get_pipeline(cfg["pipeline"], ds, generator=torch.Generator().manual_seed(0))
+    mode = hg.resolve_fwd_mode(pipe.pos_cfg)
+    t0 = time.perf_counter()
+    m = ab_importance.evaluate(pipe, ds)
+    m["eval_s"] = time.perf_counter() - t0
+    slices = ab_importance.eval_slices(ds.num_rays)
+    return m, mode, {("K1", mode, 3): slices, ("K1", mode, 2): slices}
+
+
+def phase_quality(ctx: dict, card: str, rows: list[dict]) -> dict:
+    """The quality and real-scale path, every count set to 0 just before it
+    and read just after, each part's launches held to what its sampler
+    implies: ``tools.real_scale_demo`` at full size from memory (the
+    flagship, 1 + 59 + 200 steps, the voxelgrid query), one
+    ``quality_real_scale`` cell of the flagship on that dataset
+    (``ab_importance.run``, ``REAL_CELL_BUDGET`` s, seed 0, eval over every
+    ray) beside its initial parameters' eval, then ``tools.quality_matrix``
+    on ``QM_VARIANTS`` x ``QM_SCENES`` beside each cell's untrained eval.
+    Every trained PSNR must beat its untrained one, every loss be finite.
+    Then K1 and K2 against their plain versions at the real-scale path's
+    own points."""
+    from atmonr_tpu_torch import load_config
+    from atmonr_tpu_torch.data.harp2 import HARP2Dataset
+    from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
+    from atmonr_tpu_torch.tools import (
+        ab_importance, quality_matrix, quality_real_scale, real_scale_demo, repo_path,
+    )
+
+    t_phase = time.perf_counter()
+    flagship = quality_real_scale.VARIANTS["occ13_32p24f"]
+    every = json.loads(CONFIG.read_text())["pipeline"]["occupancy"]["update_every"]
+    # ---- the quality path: counts reset just before, read just after ----
+    reset_counts()
+    keep = {}
+    demo = real_scale_demo.main(REAL_DEMO_ARGS, keep=keep)
+    after_demo = read_counts()
+    ds = keep["dataset"]
+    cell = ab_importance.run("occ13_32p24f", flagship, quality_real_scale.MAX_ITERS, seed=0,
+                             seconds=REAL_CELL_BUDGET, dataset=ds)
+    init, _, init_counts = _untrained(flagship, ds)
+    after_cell = read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        qm = quality_matrix.main([f"budget={QM_BUDGET}", "seeds=0", f"variants={QM_VARIANTS}",
+                                  f"scenes={QM_SCENES}", f"out={tmp}/quality_matrix.jsonl"])
+    qm_init = {}
+    want_qm = {}
+    for r in qm:
+        path = quality_matrix.VARIANTS[r["name"]]
+        cfg = load_config(repo_path(path))
+        qds = HARP2Dataset(cfg["dataset"], make_synthetic_granule(
+            **ab_importance.GRANULE, n_blobs=quality_matrix.SCENES[r["scene"]]))
+        m, mode, c = _untrained(path, qds)
+        qm_init[r["name"], r["scene"]] = m
+        grid = cfg["pipeline"].get("occupancy")
+        want_qm = _add(want_qm, _add(c, _cell_counts(
+            mode, r["iters"], grid["update_every"] if grid else 0,
+            ab_importance.eval_slices(qds.num_rays))))
+    counts = read_counts()
+    # ---- end of the quality path ----
+
+    dev_mem = demo["device_memory"]
+    log(f"[real scale] {demo['height']}x{demo['width']} pixels x 90 views from memory: "
+        f"granule {demo['granule_mb']} MB built in {demo['granule_s']} s; {demo['num_rays']} "
+        f"rays (the JAX harness's record: {JAX_REAL_RAYS}; equal: "
+        f"{demo['num_rays'] == JAX_REAL_RAYS}), ray store {demo['ray_store_mb']} MB, dataset "
+        f"built in {demo['dataset_build_s']} s")
+    log(f"[real scale] flagship train step at {BATCH} rays with every ray on the card: steady "
+        f"{demo['steady_rays_per_s']:.0f} rays/s over {demo['steps']} steps beside phase 6's [steady] "
+        f"{ctx['steady_rays_s']:.0f} rays/s ({demo['steady_rays_per_s'] / ctx['steady_rays_s']:.3f}"
+        f"x); first step {demo['compile_s']} s; loss {demo['final_loss']:.4f}; peak device memory "
+        f"{dev_mem['max_allocated_mb']:.0f} MB allocated, {dev_mem['free_mb']:.0f} of "
+        f"{dev_mem['total_mb']:.0f} MB free after; voxelgrid {demo['extract_points']} points in "
+        f"{demo['extract_s']} s, on {card}")
+    n_extract = -(-demo["extract_points"] // BATCH)
+    want_demo = step_counts("q8", keep["steps"],
+                            k1_d3_extra=1 + keep["steps"] // every + n_extract)
+    if launched(after_demo) != want_demo:
+        raise RuntimeError(f"[real scale] launches: {show(after_demo)}; expected {show(want_demo)}")
+    log(f"[real scale] launches of the demo: {show(after_demo)}")
+
+    slices = ab_importance.eval_slices(ds.num_rays)
+    log(f"[real scale] quality cell occ13_32p24f seed 0, {REAL_CELL_BUDGET:.0f} s: "
+        f"{cell['iters']} steps ({cell['rays_per_s']:.0f} rays/s, {cell['restarts']} "
+        f"restarts), loss {cell['loss']:.5f}; PSNR {cell['psnr']:.3f} SSIM {cell['ssim']:.4f} "
+        f"over all {ds.num_rays} rays ({slices} slices of {ab_importance.EVAL_SLICE}) in "
+        f"{cell['eval_s']:.1f} s; the initial parameters: PSNR {init['PSNR_mean']:.3f} SSIM "
+        f"{init['SSIM_mean']:.4f} in {init['eval_s']:.1f} s, on {card}")
+    if not np.isfinite(cell["loss"]) or not cell["psnr"] > init["PSNR_mean"]:
+        raise RuntimeError(f"[real scale] quality cell: loss {cell['loss']}, PSNR "
+                           f"{cell['psnr']} against the initial {init['PSNR_mean']}")
+    delta = {k: after_cell[k] - after_demo[k] for k in after_cell}
+    want_cell = _add(_cell_counts("q8", cell["iters"], every, slices), init_counts)
+    if launched(delta) != launched(want_cell):
+        raise RuntimeError(f"[real scale] quality cell launches: {show(delta)}; expected "
+                           f"{show(want_cell)}")
+
+    for r in qm:
+        m = qm_init[r["name"], r["scene"]]
+        log(f"[quality] {r['name']} {r['scene']} seed 0, {QM_BUDGET:.0f} s: {r['iters']} steps "
+            f"({r['rays_per_s']:.0f} rays/s), loss {r['loss']:.5f}, PSNR {r['psnr']:.3f} SSIM "
+            f"{r['ssim']:.4f}; untrained PSNR {m['PSNR_mean']:.3f} SSIM {m['SSIM_mean']:.4f}; "
+            f"eval {r['eval_s']:.2f} s, on {r['device']}")
+        if not np.isfinite(r["loss"]) or not r["psnr"] > m["PSNR_mean"]:
+            raise RuntimeError(f"[quality] {r['name']} {r['scene']}: loss {r['loss']}, PSNR "
+                               f"{r['psnr']} against the untrained {m['PSNR_mean']}")
+    delta = {k: counts[k] - after_cell[k] for k in counts}
+    if launched(delta) != launched(want_qm):
+        raise RuntimeError(f"[quality] matrix launches: {show(delta)}; expected {show(want_qm)}")
+    log(f"[quality] launches on the quality path: {show(counts)}")
+
+    batch = {k: v[:BATCH] for k, v in ds.rays().items()}
+    check_path_kernels("quality real scale", keep["pipeline"], batch, rows)
+    log(f"[time] {time.perf_counter() - t_phase:.1f} s in the quality phase")
+    return {"quality": counts}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2138,6 +2302,8 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the multi-device phase")
     paths.update(phase_tools(ctx, smi, rows))
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the tools phase")
+    paths.update(phase_quality(ctx, smi, rows))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the quality phase")
     for row in rows:
         keys = row.pop("key")
         keys = keys if isinstance(keys, list) else [keys]

@@ -8,6 +8,7 @@ here only their shape and the control flow are checked.
 
 import json
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -16,7 +17,9 @@ import _torch_ranks as ranks
 from atmonr_tpu_torch import bench
 from atmonr_tpu_torch.models.hash_grid import HashGridConfig
 from atmonr_tpu_torch.tools import (
-    bench_dma_gather, bench_scaling, bench_trainer, diag_fwd_breakdown, profile_step,
+    ab_clip_cost, ab_importance, ab_q8_sr, ab_q8_train_fp_eval, ab_q8_twophase,
+    bench_dma_gather, bench_ref_capacity, bench_scaling, bench_trainer, diag_fwd_breakdown,
+    diag_ref_capacity, profile_step, quality_matrix, quality_real_scale, real_scale_demo,
 )
 from atmonr_tpu_torch.utils.config import load_config
 
@@ -41,6 +44,17 @@ ENTRY_POINTS = {
     "diag_fwd_breakdown": lambda: diag_fwd_breakdown.main(),
     "bench_trainer": lambda: bench_trainer.main([]),
     "bench_scaling": lambda: bench_scaling.main([]),
+    "ab_importance": lambda: ab_importance.main([]),
+    "ab_importance.run": lambda: ab_importance.run("x", FLAGSHIP, 1),
+    "quality_matrix": lambda: quality_matrix.main([]),
+    "ab_q8_sr": lambda: ab_q8_sr.main([]),
+    "real_scale_demo": lambda: real_scale_demo.main([]),
+    "quality_real_scale": lambda: quality_real_scale.main([]),
+    "ab_q8_train_fp_eval": lambda: ab_q8_train_fp_eval.main([]),
+    "ab_q8_twophase": lambda: ab_q8_twophase.main([]),
+    "bench_ref_capacity": lambda: bench_ref_capacity.main([]),
+    "diag_ref_capacity": lambda: diag_ref_capacity.main([]),
+    "ab_clip_cost": lambda: ab_clip_cost.main([]),
 }
 
 
@@ -153,3 +167,73 @@ def test_bench_scaling_over_two_gloo_ranks(tmp_path):
     r0, r1 = ranks.spawn(2, tmp_path, ranks.scaling_ranks, TINY)
     assert r0["data=1"] > 0 and r1["data=1"] is None
     assert r0["data=2"] > 0 and r1["data=2"] > 0
+
+
+def test_ab_importance_main_compares_the_samplers(capsys):
+    """The three samplers' configs, one line and one result each."""
+    out = ab_importance.main([], device="cpu", num_iters=2, granule=TINY, batch_size=64)
+    assert [r["name"] for r in out] == list(ab_importance.VARIANTS)
+    assert all(r["iters"] == 2 and r["device"] == "cpu" for r in out)
+    text = capsys.readouterr().out
+    assert all(f"[{name} seed=0] 2 iters" in text for name in ab_importance.VARIANTS)
+
+
+def test_ab_q8_sr_sweeps_seeds(capsys):
+    """The hard scene (its blobs need a swath of 16 x 12 pixels or more)."""
+    table = ab_q8_sr.main(["hard", "seeds=0,1", "iters=2", "q8det"], device="cpu",
+                          granule={"height": 16, "width": 12, "views_per_band": 1},
+                          batch_size=64)
+    assert list(table) == ["q8det"] and len(table["q8det"]) == 2
+    assert "== hard scene, 2 iters, seeds [0, 1] ==" in capsys.readouterr().out
+
+
+def test_two_phase_hands_the_state_over(monkeypatch):
+    """Steps before the switch go through the q8 config's pipeline, the
+    rest through the flagship's, from the parameters, grid and optimizer
+    state the first left; the fp-eval tool switches after the last step."""
+    calls = []
+    real = bench.make_train_step
+
+    def recording(pipe, optimizer, *args):
+        one_iter = real(pipe, optimizer, *args)
+
+        def step(i):
+            calls.append((i, pipe.pos_cfg.fwd_mode, pipe.pos_sr, optimizer.count))
+            return one_iter(i)
+
+        return step
+
+    monkeypatch.setattr(bench, "make_train_step", recording)
+    r = ab_q8_twophase.main(["0.5"], device="cpu", num_iters=4, granule=TINY, batch_size=64)
+    assert [c[:3] for c in calls] == [(0, "q8", False), (1, "q8", False), (2, "q8", True),
+                                      (3, "q8", True)]
+    assert [c[3] for c in calls] == [0, 1, 2, 3]  # one optimizer state throughout
+    assert r["iters"] == 4 and np.isfinite(r["psnr"]) and r["device"] == "cpu"
+    calls.clear()
+    r = ab_q8_train_fp_eval.main([], device="cpu", num_iters=3, granule=TINY, batch_size=64)
+    assert [c[:3] for c in calls] == [(i, "q8", False) for i in range(3)]
+    assert np.isfinite(r["psnr"])
+
+
+def test_reference_capacity_tools_run_small(capsys):
+    """At the flagship's shapes on a tiny granule: the Trainer's steady
+    step, and the five stages (``profile_step``'s where they are its)."""
+    r = bench_ref_capacity.main(["iters=1", "warmup=1", f"config={FLAGSHIP}"], device="cpu",
+                                granule=TINY)
+    assert r["step_ms"] > 0 and r["rays_per_s"] > 0 and np.isfinite(r["loss"])
+    times = diag_ref_capacity.main(["batch=32", "iters=1", f"config={FLAGSHIP}"], device="cpu",
+                                   granule=TINY)
+    assert list(times) == ["encode_fwd", "pipeline_fwd", "encode_bwd", "full_grad",
+                           "train_step"]
+    assert all(t > 0 for t in times.values())
+    assert diag_ref_capacity.main(["batch=32", "iters=1", f"config={FLAGSHIP}", "stage=step"],
+                                  device="cpu", granule=TINY).keys() == {"train_step"}
+    text = capsys.readouterr().out
+    assert "points/iter=0.0M" in text and "steady step:" in text
+
+
+def test_ab_clip_cost_interleaves_the_arms(capsys):
+    out = ab_clip_cost.main(["iters=2"], device="cpu", granule=TINY, batch_size=64, warmup=1)
+    assert len(out["clip"]) == len(out["noclip"]) == 3 and np.isfinite(out["cost"])
+    lines = [x.split()[0] for x in capsys.readouterr().out.splitlines()[:6]]
+    assert lines == ["noclip", "clip"] * 3
