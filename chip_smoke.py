@@ -169,10 +169,25 @@ Phases, each of which raises on failure:
    refreshes, extraction batches and eval slices imply (a count that
    differs raises). K1 and K2 are then held to their plain versions at the
    real-scale path's own points.
+12. Collapse: ``tools.repro_occ15_collapse`` on
+   ``instant_ngp_tpu_occ13_q8sr.json`` (the flagship without its guard),
+   the smooth 96x48-pixel scene, 8,192 rays, 200 steps a cell: the JAX
+   package's inits of seeds 0 and 4 (``convert.jax_ngp_init``, bit-equal to
+   ``init_params(PRNGKey(1000 * s))``; on the TPU seed 4 collapsed and seed
+   0 did not) and the port's inits of seeds 0 and 4, at bf16 MLP products.
+   Each cell prints its trace, its branch gradient norms over steps 1-20
+   and its outcome by the restart guard's rule; a non-finite loss raises, a
+   collapse does not. Launches: what 200 steps, 13 refreshes and the eval
+   imply.
+13. Entry: ``graft_entry.entry()`` on the card (K1 bf16 for both grids,
+   once each), its loss and colors against ``entry(device="cpu")``'s; then
+   ``graft_entry.dryrun_multichip`` over NCCL on every card present (one
+   rank here): the three ``dryrun_multichip OK`` lines, the ranks' K1 and K2
+   launches summed (each must be launched).
 
 Each main path (phases 4-5, phase 6's training and each of its three
 grids, each configuration of phase 7, each path of phase 8 and of phase 9,
-phase 10's tools and phase 11's quality path) has every
+phase 10's tools, phase 11's quality path and phases 12 and 13) has every
 launch count set to 0 just before it and read just after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is the result, ``{"ok": true, "device": ...}``.
@@ -274,6 +289,9 @@ SCALING_WARM_ITERS = 100  # bench_scaling's warm-up cap here (its own: 1,200)
 REAL_DEMO_ARGS = ["source=memory"]
 JAX_REAL_RAYS = 14_587_440  # the JAX real-scale harness's num_rays (docs/quality_real_scale.jsonl)
 REAL_CELL_BUDGET = 10.0
+COLLAPSE_CONFIG = "configs/instant_ngp_tpu_occ13_q8sr.json"
+COLLAPSE_CELLS = (("jax", 0), ("jax", 4), ("port", 0), ("port", 4))
+COLLAPSE_STEPS = 200
 QM_VARIANTS, QM_SCENES, QM_BUDGET = "occ13_32p24f,uniform128", "smooth,hard", 5.0
 
 
@@ -2272,6 +2290,114 @@ def phase_quality(ctx: dict, card: str, rows: list[dict]) -> dict:
     return {"quality": counts}
 
 
+def phase_collapse(card: str) -> dict:
+    """The collapse tool's cells (``COLLAPSE_CELLS``: the JAX package's and the
+    port's inits of seeds 0 and 4) on ``COLLAPSE_CONFIG``, the smooth scene,
+    ``COLLAPSE_STEPS`` steps each at bf16 MLP products, every count set to 0
+    just before and read just after; raises on a non-finite loss or a launch
+    count other than the cells' steps, refreshes and eval slices imply."""
+    from atmonr_tpu_torch import load_config
+    from atmonr_tpu_torch.data.harp2 import HARP2Dataset
+    from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
+    from atmonr_tpu_torch.tools import ab_importance, repo_path
+    from atmonr_tpu_torch.tools import repro_occ15_collapse as collapse
+    from atmonr_tpu_torch.utils.device import resolve_device
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    cfg = load_config(repo_path(COLLAPSE_CONFIG))
+    ds = HARP2Dataset(cfg["dataset"], make_synthetic_granule(**collapse.GRANULE, n_blobs=1),
+                      device=dev)
+    every = cfg["pipeline"]["occupancy"]["update_every"]
+    want = {}
+    reset_counts()
+    rows = []
+    for init, seed in COLLAPSE_CELLS:
+        row = collapse.run_cell(cfg, ds, seed, init=init, products="bf16",
+                                num_iters=COLLAPSE_STEPS, device=dev)
+        if not np.isfinite(row["loss_final"]) or not all(np.isfinite(t[1]) for t in row["trace"]):
+            raise RuntimeError(f"[collapse] init={init} seed={seed}: a non-finite loss")
+        rows.append(row)
+        want = _add(want, _cell_counts("q8", COLLAPSE_STEPS, every,
+                                       ab_importance.eval_slices(ds.num_rays)))
+    counts = read_counts()
+    if launched(counts) != launched(want):
+        raise RuntimeError(f"collapse launches {show(counts)}, want {show(want)}")
+    for row in rows:
+        at = row["loss_at_check"]
+        log(f"[collapse] {COLLAPSE_CONFIG} init={row['init']} seed={row['seed']}: "
+            f"{'collapsed' if row['collapsed_at_check'] else 'healthy'} at step "
+            f"{collapse.CHECK_ITER} (mean of the last 5 losses "
+            f"{'none' if at is None else f'{at:.5f}'}), "
+            f"final loss {row['loss_final']:.5f}, atmosphere gradient 0 from step "
+            f"{row['atmosphere_dead_from']}, surface from {row['surface_dead_from']}, PSNR "
+            f"{row['psnr']:.2f} SSIM {row['ssim']:.4f}, {row['seconds']:.2f} s, on {card}")
+    jax_rows = {r["seed"]: r["collapsed_at_check"] for r in rows if r["init"] == "jax"}
+    log(f"[collapse] the JAX package's inits on the card: seed 4 "
+        f"{'collapsed' if jax_rows[4] else 'healthy'}, seed 0 "
+        f"{'collapsed' if jax_rows[0] else 'healthy'} (the TPU record: seed 4 collapsed, "
+        f"seed 0 healthy); launches {show(counts)}")
+    log(f"[time] {time.perf_counter() - t_phase:.1f} s in the collapse phase")
+    return {"collapse": counts}
+
+
+def phase_entry(card: str, rows: list[dict]) -> dict:
+    """``graft_entry.entry()`` on the card against the CPU's, and
+    ``graft_entry.dryrun_multichip`` over NCCL on every card present, each
+    path's counts set to 0 just before it and read just after (the dry
+    run's from its ranks' own counts). K1 and K2 are held against their
+    plain versions on the entry's card pipeline (the dry run's tiny config
+    and tables) at the entry's 64 rays and at the dry run's 8 rays a rank."""
+    from atmonr_tpu_torch import graft_entry
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    fn, (pipe, batch) = graft_entry.entry()
+    with torch.no_grad():
+        loss, color = fn(pipe, batch)
+        torch.cuda.synchronize()
+    entry_counts = read_counts()
+    want = {("K1", "bf16", 3): 1, ("K1", "bf16", 2): 1}
+    if launched(entry_counts) != want:
+        raise RuntimeError(f"entry() launched {show(entry_counts)}, want {show(want)}")
+    cfn, (cpipe, cbatch) = graft_entry.entry(device="cpu")
+    with torch.no_grad():
+        closs, ccolor = cfn(cpipe, cbatch)
+    color = color.cpu()
+    err = float((color - ccolor).abs().max() / ccolor.abs().max())
+    rel = abs(float(loss) / float(closs) - 1.0)
+    log(f"[entry] forward and loss on {graft_entry.ENTRY_RAYS} rays of the 12x8 granule at "
+        f"the JAX entry's parameters: loss {float(loss):.6f} (CPU {float(closs):.6f}, rel diff "
+        f"{rel:.2g}), colors {tuple(color.shape)} max |diff| {err:.2g} of the largest "
+        f"(limits rtol 1e-3 on the loss, 1e-3 + 1e-4 of the largest on the colors: bf16 "
+        f"products and float32 preprocessors of two devices); launches {show(entry_counts)}")
+    if not torch.isfinite(color).all() or rel > 1e-3 or not torch.allclose(
+            color, ccolor, rtol=1e-3, atol=1e-4 * float(ccolor.abs().max())):
+        raise RuntimeError("entry() on the card differs from the CPU's")
+    check_path_kernels("entry", pipe, batch, rows)
+    check_path_kernels("entry dryrun", pipe, {k: v[:8] for k, v in batch.items()}, rows)
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = graft_entry.dryrun_multichip(n)
+    dry_s = time.perf_counter() - t0
+    counts = dict.fromkeys(read_counts(), 0)  # every kernel's key, T2's among them
+    for r in ranks:
+        counts = _add(counts, {("K1", mode, d): c for (mode, d), c in r["launches"]["K1"].items()})
+        counts = _add(counts, {("K2", None, d): c for d, c in r["launches"]["K2"].items()})
+    need = [("K1", "bf16", 3), ("K1", "bf16", 2), ("K2", None, 3), ("K2", None, 2)]
+    if any(not counts.get(k) for k in need):
+        raise RuntimeError(f"the dry run launched {show(counts)}: every one of K1 bf16 and K2 "
+                           "at D=2 and D=3 must run")
+    first = ranks[0]
+    log(f"[entry] dryrun_multichip({n}) over NCCL: sharded step losses "
+        f"{[round(x, 5) for x in first['sharded_step']['losses']]}, NeRF loss "
+        f"{first['nerf']['loss']:.5f} after {first['nerf']['iter_count']} iterations, granule "
+        f"losses {[round(x, 5) for x in first['granules']['losses']]}; {dry_s:.1f} s with the "
+        f"ranks' start; launches over the ranks {show(counts)}, on {card}")
+    log(f"[time] {time.perf_counter() - t_phase:.1f} s in the entry phase")
+    return {"entry": entry_counts, "entry dryrun": counts}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2304,6 +2430,10 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the tools phase")
     paths.update(phase_quality(ctx, smi, rows))
     log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the quality phase")
+    paths.update(phase_collapse(smi))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the collapse phase")
+    paths.update(phase_entry(smi, rows))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s to the end of the entry phase")
     for row in rows:
         keys = row.pop("key")
         keys = keys if isinstance(keys, list) else [keys]
