@@ -1,23 +1,27 @@
 """Hash-encode forward over bf16, f32, int8 (q8) and float8 (f8) tables:
-kernel K1 of the port.
+kernels K1 (the gather) and K1p (the q8/f8 table preparation) of the port.
 
 Replaces the TPU kernel ``atmonr_tpu/ops/hash_gather_pallas.py::
-hash_encode_pallas_fwd`` in its four modes. The parts:
+hash_encode_pallas_fwd`` in its four modes: its table packing and
+quantization (``pack_tables``) and its gather. The parts:
 
 - ``prepare_table``: the table as a mode's kernel reads it, from the float32
   master table. ``"bf16"``: the table rounded to bfloat16 (nearest even), a
-  natural (T, 2) tensor. ``"f32"``: the master table itself.
-  ``"q8"`` (``quantize_tables_q8``): per-level symmetric int8 with scale
-  ``s = max|t| / 127``, rounding to nearest or, with noise ``u``,
-  ``floor(t/s + u)`` (stochastic rounding), clipped to +-127. ``"f8"``
-  (``quantize_tables_f8``): per-level float8_e4m3fn codes of ``t / s`` with
-  the power-of-two scale ``s = 2^ceil(log2(max|t| / 448))``. All plain
-  tensor ops, as in the JAX package (XLA glue outside the kernel). The TPU
-  kernel's u32 packing, 128-lane chunks and padding are layout for its lane
-  gather and are not carried over.
-- ``hash_gather``: the wrapper of the CUDA kernel ``csrc/hash_gather.cu``.
-  On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
-  runs ``hash_gather_plain``. The table's dtype says which mode it is.
+  natural (T, 2) tensor. ``"f32"``: the master table itself. ``"q8"`` and
+  ``"f8"``: ``quantize_tables``.
+- ``quantize_tables``: the wrapper of the CUDA kernel ``csrc/quantize.cu``
+  (K1p). On a CUDA tensor it launches the kernel, or raises; on a CPU
+  tensor it runs the plain version: ``quantize_tables_q8`` (per-level
+  symmetric int8 with scale ``s = max|t| / 127``, rounding to nearest or,
+  with noise ``u``, ``floor(t/s + u)`` (stochastic rounding), clipped to
+  +-127) or ``quantize_tables_f8`` (per-level float8_e4m3fn codes of
+  ``t / s`` with the power-of-two scale ``s = 2^ceil(log2(max|t| / 448))``),
+  plain tensor ops as in the JAX package (XLA glue outside its kernel). The
+  TPU kernel's u32 packing, 128-lane chunks and padding are layout for its
+  lane gather and are not carried over.
+- ``hash_gather``: the wrapper of the CUDA kernel ``csrc/hash_gather.cu``
+  (K1). On a CUDA tensor it launches the kernel, or raises; on a CPU tensor
+  it runs ``hash_gather_plain``. The table's dtype says which mode it is.
 - ``hash_gather_plain``: the same gathers written with tensor indexing over
   the table decoded to float32, the corner sum in the kernel's order, then
   (q8, f8) the multiply by ``s``.
@@ -39,7 +43,11 @@ from atmonr_tpu_torch.models.hash_grid import (
     _hash_encode_exact,
 )
 from atmonr_tpu_torch.ops.hash_bwd import check_grid, hash_bwd, level_args
-from atmonr_tpu_torch.ops.kernel_plan import level_plan
+from atmonr_tpu_torch.ops.kernel_plan import (
+    QUANTIZE_MAX_BLOCKS,
+    level_plan,
+    quantize_plan,
+)
 
 TABLE_DTYPES = {
     "bf16": torch.bfloat16,
@@ -70,14 +78,22 @@ def _level_amax(table: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
     return torch.clamp(amax, min=1e-30)
 
 
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as a true float32 division on every device, as the JAX
+    package and the CPU compute it: PyTorch's CUDA kernels multiply by the
+    reciprocal of a Python-number divisor, an ulp off for some quotients."""
+    return x / torch.full_like(x, d)
+
+
 def quantize_tables_q8(
     table: torch.Tensor, cfg: HashGridConfig, noise: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """All levels -> (int8 (total_params, F) table, (L,) f32 scales), in one
-    pass over the table: a per-level max by scatter, then each row divided
-    by its level's scale. ``noise`` (table-shaped, U[0,1)) switches from
-    rounding to nearest to stochastic rounding ``floor(t/s + u)``."""
-    scales = _level_amax(table, cfg) / 127.0
+    """Plain PyTorch version of kernel K1p in q8: all levels -> (int8
+    (total_params, F) table, (L,) f32 scales), with tensor ops on any
+    device: a per-level max by scatter, then each row divided by its
+    level's scale. ``noise`` (table-shaped, U[0,1)) switches from rounding
+    to nearest to stochastic rounding ``floor(t/s + u)``."""
+    scales = _true_div(_level_amax(table, cfg), 127.0)
     t = table / scales[_row_levels(cfg, table.device)][:, None]
     q = torch.round(t) if noise is None else torch.floor(t + noise)
     return torch.clamp(q, -127, 127).to(torch.int8), scales
@@ -86,15 +102,16 @@ def quantize_tables_q8(
 def quantize_tables_f8(
     table: torch.Tensor, cfg: HashGridConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """All levels -> (float8_e4m3fn (total_params, F) codes, (L,) f32
-    scales), in one pass like ``quantize_tables_q8``.
+    """Plain PyTorch version of kernel K1p in f8: all levels ->
+    (float8_e4m3fn (total_params, F) codes, (L,) f32 scales), like
+    ``quantize_tables_q8``.
 
     The scale is the JAX package's ``exp2(ceil(log2(m / 448)))`` with
     ``m = max(max|t|, 1e-30)``, evaluated exactly: ``m / 448 = f * 2^e`` with
     ``f`` in [0.5, 1) has ``ceil(log2) = e``, or ``e - 1`` when ``f`` is
     exactly 0.5. So ``s`` is a power of two, ``|t / s| <= 448`` never
     saturates, and the cast rounds to nearest even."""
-    mant, exp = torch.frexp(_level_amax(table, cfg) / F8_MAX)
+    mant, exp = torch.frexp(_true_div(_level_amax(table, cfg), F8_MAX))
     scales = torch.ldexp(torch.ones_like(mant), torch.where(mant == 0.5, exp - 1, exp))
     t = table / scales[_row_levels(cfg, table.device)][:, None]
     return t.to(torch.float8_e4m3fn), scales
@@ -105,14 +122,87 @@ def prepare_table(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The float32 master table as ``mode``'s kernel reads it: (table of
     ``TABLE_DTYPES[mode]``, (L,) f32 scales or None). ``noise`` is q8's
-    stochastic rounding."""
-    if mode == "q8":
-        return quantize_tables_q8(table, cfg, noise)
-    if mode == "f8":
-        return quantize_tables_f8(table, cfg)
+    stochastic rounding. q8 and f8 go to ``quantize_tables`` (kernel K1p on
+    a card)."""
+    if mode in _SCALED:
+        return quantize_tables(table, cfg, mode, noise if mode == "q8" else None)
     if mode not in KERNEL_MODES:
         raise ValueError(f"no hash gather kernel for mode {mode!r}; known: {KERNEL_MODES}")
     return table.to(TABLE_DTYPES[mode]), None
+
+
+@functools.cache
+def _quantize_kernel():
+    """The C entry point of ``csrc/quantize.cu``, built at first use."""
+    from atmonr_tpu_torch import _build
+
+    fn = _build.load("quantize").quantize_tables
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def quantize_tables(
+    table: torch.Tensor, cfg: HashGridConfig, mode: str, noise: torch.Tensor | None = None,
+    max_blocks: int = QUANTIZE_MAX_BLOCKS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K1p: the (total_params, 2) float32 master table -> (int8 or
+    float8_e4m3fn (total_params, 2) codes, (L,) f32 scales) for ``mode``
+    ``"q8"`` (``noise``: stochastic rounding) or ``"f8"`` (no noise).
+
+    CUDA tensors go to the kernel of ``csrc/quantize.cu`` (built at first
+    use) on the current stream, in the blocks of ``quantize_plan(cfg,
+    max_blocks)``, and each call adds one to
+    ``quantize_tables.launches[(mode, D)]``; a failed build or launch
+    raises. CPU tensors go to the plain version, ``quantize_tables_q8`` or
+    ``quantize_tables_f8``, equal to the kernel bit for bit. Other devices
+    raise."""
+    check_grid(cfg, "the table quantizer")
+    if mode not in _SCALED:
+        raise ValueError(f"the table quantizer takes modes {_SCALED}, not {mode!r}")
+    shape = (cfg.total_params, 2)
+    if table.dtype != torch.float32 or table.shape != shape:
+        raise ValueError(f"table must be float32 {shape}")
+    if noise is not None:
+        if mode != "q8":
+            raise ValueError("only q8 rounds with noise")
+        if noise.dtype != torch.float32 or noise.shape != shape or noise.device != table.device:
+            raise ValueError(f"noise must be float32 {shape} on the table's device")
+    if table.device.type == "cpu":
+        if mode == "q8":
+            return quantize_tables_q8(table, cfg, noise)
+        return quantize_tables_f8(table, cfg)
+    if table.device.type != "cuda":
+        raise ValueError(f"no table quantizer for device {table.device}")
+    plan = quantize_plan(cfg, max_blocks)
+
+    def aligned(t):  # the kernel reads float4s
+        t = t.contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    table = aligned(table)
+    noise = None if noise is None else aligned(noise)
+    codes = torch.empty(shape, dtype=TABLE_DTYPES[mode], device=table.device)
+    scales = torch.empty((cfg.n_levels,), dtype=torch.float32, device=table.device)
+    partials = torch.empty(plan.partials_shape, dtype=torch.int32, device=table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = _quantize_kernel()(
+            table.data_ptr(), None if noise is None else noise.data_ptr(), partials.data_ptr(),
+            codes.data_ptr(), scales.data_ptr(), cfg.total_params, cfg.n_levels,
+            level_args(cfg)[2], int(mode == "f8"), plan.blocks, plan.block_rows, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"quantize_tables ({mode}) launch failed: CUDA error {err}")
+    quantize_tables.launches[(mode, cfg.n_dims)] += 1
+    return codes, scales
+
+
+quantize_tables.launches = {(mode, d): 0 for mode in _SCALED for d in (2, 3)}
 
 
 def hash_gather_plain(

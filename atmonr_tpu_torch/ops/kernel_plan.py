@@ -1,4 +1,5 @@
-"""How the two hash-grid kernels take the levels of a grid: the level plan.
+"""How the hash-grid kernels take the levels of a grid: the level plan of
+K1 and K2, and the block geometry of K1p (``quantize_plan``).
 
 Both CUDA kernels (``csrc/hash_gather.cu``, K1, and ``csrc/hash_bwd.cu``, K2)
 can run blocks that work on one level each (K1: one group of 4 levels) and
@@ -23,6 +24,9 @@ direct grid for the rest. ``PERF.md`` (Findings) holds those numbers.
 The plan is a function of the grid config, the number of points and the
 bytes of a row alone. The thresholds are the constants below; ``PERF.md``
 holds the measurement that set each one (``scripts/bench_kernels.py``).
+
+K1p (``csrc/quantize.cu``, the q8/f8 table preparation) cuts the flat table
+into equal row ranges, one a block, whatever the levels: ``quantize_plan``.
 """
 
 from __future__ import annotations
@@ -66,6 +70,16 @@ CHUNK_ADDS_PER_ROW = 8
 # direct threads aimed at: a thread's run of points is halved until the
 # launch has this many threads (the card holds 132 x 2,048)
 MIN_DIRECT_THREADS = 132 * 2048
+
+
+# K1p (csrc/quantize.cu): blocks of QUANTIZE_THREADS threads, a float4 (two
+# table rows) a thread in each pass over a block's range, and at most
+# QUANTIZE_MAX_BLOCKS blocks: 8 blocks of 256 threads fill an SM's 2,048, on
+# the card's 132 SMs. A block's range is a whole number of QUANTIZE_ALIGN
+# rows, the unit every level's offset and size are a multiple of.
+QUANTIZE_THREADS = 256  # kQuantizeThreads
+QUANTIZE_MAX_BLOCKS = 132 * 8
+QUANTIZE_ALIGN = 8
 
 
 def _round_up(n: int, m: int) -> int:
@@ -156,3 +170,49 @@ def level_plan(cfg: HashGridConfig, m: int, row_bytes: int, scatter: bool) -> Le
     if plan.blocks > MAX_GRID:
         raise ValueError(f"{m} points are more than one launch of the hash-grid kernels takes")
     return plan
+
+
+@dataclass(frozen=True)
+class QuantizePlan:
+    """How K1p cuts a table of ``rows`` rows: block b takes the flat rows
+    ``[b * block_rows, min((b + 1) * block_rows, rows))``, ranges that may
+    straddle level boundaries, and both launches use the same ranges. The
+    blocks' per-level maxima are a ``partials_shape`` = (blocks, levels)
+    scratch array."""
+
+    rows: int
+    blocks: int
+    block_rows: int
+    n_levels: int
+
+    @property
+    def partials_shape(self) -> tuple[int, int]:
+        return (self.blocks, self.n_levels)
+
+    def block_span(self, b: int) -> tuple[int, int]:
+        """Block ``b``'s rows, [first, end)."""
+        return b * self.block_rows, min((b + 1) * self.block_rows, self.rows)
+
+    def level_blocks(self, offset: int, size: int) -> range:
+        """The blocks whose ranges hold rows of the level at ``offset`` with
+        ``size`` rows: those whose partials make its maximum."""
+        return range(offset // self.block_rows, (offset + size - 1) // self.block_rows + 1)
+
+    def describe(self) -> str:
+        return (f"{self.blocks} blocks of {QUANTIZE_THREADS} threads, {self.block_rows} rows "
+                f"a block; partials {self.blocks} x {self.n_levels}")
+
+
+@functools.cache
+def quantize_plan(cfg: HashGridConfig, max_blocks: int = QUANTIZE_MAX_BLOCKS) -> QuantizePlan:
+    """K1p's blocks for grid ``cfg``: as many as give every thread one
+    float4, at most ``max_blocks``, each a whole number of 8-row units."""
+    if cfg.n_levels > MAX_LEVELS:
+        raise ValueError(f"the table quantizer takes <= {MAX_LEVELS} levels")
+    rows = cfg.total_params
+    if max_blocks < 1 or rows % QUANTIZE_ALIGN or any(
+            o % QUANTIZE_ALIGN for o in cfg.level_offsets):
+        raise ValueError(f"no quantizer plan for {rows} rows in {max_blocks} blocks")
+    blocks = min(-(-rows // (2 * QUANTIZE_THREADS)), max_blocks)
+    block_rows = _round_up(-(-rows // blocks), QUANTIZE_ALIGN)
+    return QuantizePlan(rows, -(-rows // block_rows), block_rows, cfg.n_levels)

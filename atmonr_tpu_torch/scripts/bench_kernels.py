@@ -1,8 +1,10 @@
 """Times kernels K1 and K2 on the card at the shapes the shipped configs give
-them, under variants of the level plan's constants.
+them, under variants of the level plan's constants; with ``--quantize``,
+kernel K1p (the q8/f8 table preparation) instead.
 
     python -m atmonr_tpu_torch.scripts.bench_kernels            # the plan as it is
     python -m atmonr_tpu_torch.scripts.bench_kernels --sweep    # and its variants
+    python -m atmonr_tpu_torch.scripts.bench_kernels --quantize # K1p
 
 Needs one CUDA device and ``nvcc``. Each line holds the kernel to its plain
 version first (K1 exactly; K2 to 1e-4 of max|dW|), then prints its device
@@ -11,6 +13,12 @@ plan took the levels. A variant sets the constants of ``ops/kernel_plan.py``
 for one measurement ("all direct" asks for more staged blocks than any
 launch has, so every gather and every add goes to global memory). The constants in that module were
 set from this script's output; ``PERF.md`` holds the numbers.
+
+``--quantize`` holds K1p to its plain version bit for bit on every table of
+``QUANTIZE_SHAPES``, in q8 with and without stochastic-rounding noise and in
+f8, then prints the device time of both by CUDA-graph replay beside K1p's
+bound (its bytes over 3.35 TB/s) and the block geometry of
+``kernel_plan.quantize_plan``.
 
 Points: ``uniform`` in [0, 1)^D; ``rays``: 24 consecutive samples along each
 of M / 24 random rays, in a tenth of the ray's length, as an occupancy
@@ -49,6 +57,16 @@ SHAPES = (
     ("D instant_ngp", 21, 3, 1_048_576, ("bf16",)),
     ("D surface", 19, 2, 8_192, ("bf16",)),
 )
+# K1p's tables: (label, log2_hashmap_size, D, levels): the flagship's two, a
+# 2^14 grid and the largest the q8/f8 gate lets through (levels of at most
+# 2^16 rows, 32 of them)
+QUANTIZE_SHAPES = (
+    ("flagship pos", 13, 3, 16),
+    ("flagship surface", 13, 2, 16),
+    ("2^14 pos", 14, 3, 16),
+    ("gate 32 x 2^16", 16, 3, 32),
+)
+PEAK_BYTES_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 VARIANTS = (
     ("all direct", {"MIN_STAGED_BLOCKS": 1 << 40}),
     # the first design's access pattern: a thread per (point, level), every
@@ -115,11 +133,35 @@ def bench_k1(mode, table, x, cfg) -> tuple[float, str]:
     return graph_ms(lambda: hgo.hash_gather(prepared, scales, x, cfg)), "equal"
 
 
-def sass_atomics() -> None:
-    """Which shared- and global-memory atomic instructions the built
-    libraries hold (``cuobjdump -sass``, where the toolkit has it)."""
+def bench_k1p(mode: str, table, noise, cfg) -> None:
+    """K1p against its plain version (bit for bit), then both timed."""
+    def plain():
+        if mode == "q8":
+            return hgo.quantize_tables_q8(table, cfg, noise)
+        return hgo.quantize_tables_f8(table, cfg)
+
+    def kernel():
+        return hgo.quantize_tables(table, cfg, mode, noise)
+
+    (codes, scales), (want_codes, want_scales) = kernel(), plain()
+    if not (torch.equal(codes.view(torch.uint8), want_codes.view(torch.uint8))
+            and torch.equal(scales, want_scales)):
+        raise RuntimeError(f"K1p {mode} differs from its plain version")
+    rows = cfg.total_params
+    n_bytes = rows * (8 + (8 if noise is not None else 0) + 2) + cfg.n_levels * 4
+    ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    label = f"{mode}{' noise' if noise is not None else ''}"
+    print(f"[bench] K1p {label:8s} 2^{cfg.log2_hashmap_size} D={cfg.n_dims} L={cfg.n_levels} "
+          f"T={rows}: device {ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x), bound "
+          f"{1e3 * n_bytes / PEAK_BYTES_S:.4f} ms ({n_bytes / 1e6:.2f} MB), equal; "
+          f"{kp.quantize_plan(cfg).describe()}", flush=True)
+
+
+def sass_atomics(names=("hash_bwd", "hash_gather")) -> None:
+    """Which shared- and global-memory atomic and barrier instructions the
+    built libraries hold (``cuobjdump -sass``, where the toolkit has it)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("hash_bwd", "hash_gather"):
+    for name in names:
         path, _ = _build.build(name)
         try:
             sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
@@ -130,7 +172,7 @@ def sass_atomics() -> None:
         counts: dict[str, int] = {}
         for line in sass.splitlines():
             for word in line.replace(";", " ").split():
-                if word.startswith(("ATOMS", "ATOMG", "ATOM.", "RED.", "REDG")):
+                if word.startswith(("ATOMS", "ATOMG", "ATOM.", "RED.", "REDG", "BAR", "MEMBAR")):
                     counts[word] = counts.get(word, 0) + 1
         print(f"[sass] {name}: {counts}")
 
@@ -139,11 +181,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sweep", action="store_true", help="also time the plan's variants")
     parser.add_argument("--shapes", default="", help="comma-separated labels (default: all)")
+    parser.add_argument("--quantize", action="store_true",
+                        help="time K1p (the q8/f8 table preparation) instead of K1 and K2")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.quantize:
+        quantize_main([s for s in args.shapes.split(",") if s])
+        return
     for name, (path, report) in _build.build_all(("hash_gather", "hash_bwd"), verbose=True).items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -178,6 +225,28 @@ def main() -> None:
                               f"{variant:23s} {ms:.4f} ms  {check}; {plan}", flush=True)
         del table, g, x
         torch.cuda.empty_cache()
+
+
+def quantize_main(wanted: list[str]) -> None:
+    """``--quantize``: K1p on every table of ``QUANTIZE_SHAPES`` (or the
+    ``wanted`` labels)."""
+    _, report = _build.build("quantize", verbose=True)
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"[build] quantize: {line.strip()}")
+    sass_atomics(("quantize",))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for label, log2, d, levels in QUANTIZE_SHAPES:
+        if wanted and label not in wanted:
+            continue
+        cfg = HashGridConfig.from_options(
+            dict(GRID, n_levels=levels, log2_hashmap_size=log2), d)
+        table = torch.rand((cfg.total_params, 2), generator=gen, device=dev) * 2e-4 - 1e-4
+        noise = torch.rand(table.shape, generator=gen, device=dev)
+        print(f"[bench] {label}", flush=True)
+        for mode, u in (("q8", None), ("q8", noise), ("f8", None)):
+            bench_k1p(mode, table, u, cfg)
 
 
 if __name__ == "__main__":

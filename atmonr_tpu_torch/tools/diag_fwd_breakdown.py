@@ -6,9 +6,9 @@ M = 8,192 x 24 = 196,608 uniform points, in the bf16 and q8 modes, split
 into:
 
 - ``prepare_table``: the table as the kernel reads it (``ops/hash_gather.py::
-  prepare_table``: the bf16 cast; the q8 quantizer with its per-level
-  ``scatter_reduce``, by nearest rounding and, as the flagship trains, with
-  stochastic-rounding noise);
+  prepare_table``: the bf16 cast; the q8 quantizer, kernel K1p of
+  ``csrc/quantize.cu`` on a card, by nearest rounding and, as the flagship
+  trains, with stochastic-rounding noise);
 - the position relayout: none, the kernel reads the (M, 3) positions as
   they are (the TPU kernel's wrapper transposes them to 128 lanes);
 - K1 alone (``launch_kernel``: the kernel body launched without the

@@ -27,7 +27,11 @@ Phases, each of which raises on failure:
    one cell of the finest level, where all adds of a level contend for 2^D
    rows (<= 1e-4 * max|dW|). Each line ends with how the level plan
    (``atmonr_tpu_torch/ops/kernel_plan.py``) took the levels (staged in shared
-   memory or direct), the shared memory and the blocks of the launch.
+   memory or direct), the shared memory and the blocks of the launch. K1p
+   (the q8/f8 table preparation, ``csrc/quantize.cu``) at both flagship
+   tables and a 2^14 position table, q8 with and without stochastic-rounding
+   noise and f8: codes and scales equal to its plain version's bit for bit,
+   its device ms and the plain version's (graph replay) beside its bound.
 4. Slice: loads ``configs/instant_ngp_tpu_occ13.json`` unchanged, builds a
    ``synthetic:128x64x2`` granule and the pipeline on the card (random
    weights from seed 0), refreshes the occupancy grid once, renders 4 batches
@@ -44,9 +48,11 @@ Phases, each of which raises on failure:
    and asynchronous checkpoints). Checks that every loss is finite, that the
    loss fell, that the epoch image (surface | atmosphere | full | target)
    equals the one assembled on the host from the three progress buffers, and
-   that K1 and K2 ran once per grid per step (K1 once more per refresh).
-   Then times 16-step
-   blocks of steady steps, profiles one step, holds K2 to its plain
+   that K1 (with K1p, which prepares its q8 table) and K2 ran once per grid
+   per step (K1 once more per refresh). Then times 16-step
+   blocks of steady steps, profiles one step (a line with its launches, its
+   largest device ops, K1p's time and every kernel left that scatters),
+   holds K2 to its plain
    version on one forward's own sample points (<= 1e-4 * max|dW|: they
    cluster, and a row sums tens of thousands of terms in two orders; the
    kernel's run sums and block-wise partial sums change the order of a
@@ -224,6 +230,9 @@ K1_MODES = ("q8", "bf16", "f32", "f8")
 K1_ROW_BYTES = {"q8": 2, "bf16": 4, "f32": 8, "f8": 2}
 K1_NO_LIBRARY = "no single PyTorch call computes a multi-level hashed gather"
 K1_TOL = 1e-6  # of max|out|: the kernel rounds each op as the plain version does
+# K1p, the q8/f8 table preparation of the same TPU kernel (its pack_tables)
+K1P_SOURCE = "atmonr_tpu_torch/csrc/quantize.cu"
+K1P_NO_LIBRARY = "no single PyTorch call computes a per-level quantization"
 K2_SOURCE = "atmonr_tpu_torch/csrc/hash_bwd.cu"
 K2_REPLACES = "atmonr_tpu/ops/hash_bwd_pallas.py:183"
 K2_NO_LIBRARY = "no single PyTorch call computes the index math and the scatter"
@@ -316,6 +325,19 @@ def k1_bound(m: int, cfg, mode: str = "q8") -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k1p_bound(cfg, noise: bool) -> tuple[float, str]:
+    """Least time for K1p on grid ``cfg``: the table read once (8 bytes a
+    row), and the noise where there is noise, the codes (2 bytes a row) and
+    the scales written once, over the memory rate; against its float32
+    operations (an entry's max, division, rounding or add and floor, and
+    clamp: 5) over the float32 peak."""
+    rows = cfg.total_params
+    n_bytes = rows * (8 + (8 if noise else 0) + 2) + cfg.n_levels * 4
+    ops = rows * 2 * 5
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def k2_bound(m: int, cfg) -> tuple[float, str, int]:
     """Least time for K2 on (m, D) points: positions and cotangent read
     once and the table cotangent written once over the memory rate, against
@@ -335,19 +357,23 @@ def reset_counts() -> None:
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
     from atmonr_tpu_torch.ops.hash_gather import hash_gather
 
-    for counts in (hash_gather.launches, hash_bwd.launches, block_fetch.launches):
+    from atmonr_tpu_torch.ops.hash_gather import quantize_tables
+
+    for counts in (hash_gather.launches, quantize_tables.launches, hash_bwd.launches,
+                   block_fetch.launches):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts() -> dict:
     """Every launch count, keyed as the kernel rows are: ("K1", mode, D),
-    ("K2", None, D) and ("T2", None, rows a descriptor)."""
+    ("K1p", mode, D), ("K2", None, D) and ("T2", None, rows a descriptor)."""
     from atmonr_tpu_torch.ops.block_fetch import block_fetch
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
-    from atmonr_tpu_torch.ops.hash_gather import hash_gather
+    from atmonr_tpu_torch.ops.hash_gather import hash_gather, quantize_tables
 
     counts = {("K1", mode, d): n for (mode, d), n in hash_gather.launches.items()}
+    counts.update({("K1p", mode, d): n for (mode, d), n in quantize_tables.launches.items()})
     counts.update({("K2", None, d): n for d, n in hash_bwd.launches.items()})
     counts.update({("T2", None, rpd): n for rpd, n in block_fetch.launches.items()})
     return counts
@@ -366,17 +392,24 @@ def show(counts: dict) -> str:
     ) or "none"
 
 
+def encodes(mode: str, d3: int, d2: int = 0) -> dict:
+    """The launches of ``d3`` and ``d2`` hash encodes in ``mode`` at D=3 and
+    D=2: K1 once each and, in q8 and f8, K1p (the table's preparation) once
+    each too."""
+    want = {("K1", mode, 3): d3, ("K1", mode, 2): d2}
+    if mode in ("q8", "f8"):
+        want.update({("K1p", mode, 3): d3, ("K1p", mode, 2): d2})
+    return launched(want)
+
+
 def step_counts(mode: str, steps: int, k1_d3_extra: int = 0, k1_d2_extra: int = 0,
                 k1_d3_per_step: int = 1) -> dict:
-    """The launches of ``steps`` train steps in ``mode``: K1 and K2 once per
-    grid per step (K1 D=3 ``k1_d3_per_step`` times), plus K1 launches
-    outside the backward (refreshes, forwards, extraction batches)."""
-    want = {
-        ("K1", mode, 3): k1_d3_per_step * steps + k1_d3_extra,
-        ("K1", mode, 2): steps + k1_d2_extra,
-        ("K2", None, 3): steps,
-        ("K2", None, 2): steps,
-    }
+    """The launches of ``steps`` train steps in ``mode``: an encode (K1, and
+    K1p in q8/f8) and K2 once per grid per step (D=3 encodes
+    ``k1_d3_per_step`` times), plus the encodes outside the backward
+    (refreshes, forwards, extraction batches)."""
+    want = encodes(mode, k1_d3_per_step * steps + k1_d3_extra, steps + k1_d2_extra)
+    want.update({("K2", None, 3): steps, ("K2", None, 2): steps})
     return launched(want)
 
 
@@ -412,7 +445,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         host = pool.submit(build_host)
-        built = _build.build_all(("hash_gather", "hash_bwd", "block_fetch"), verbose=True)
+        built = _build.build_all(("hash_gather", "quantize", "hash_bwd", "block_fetch"),
+                                 verbose=True)
         host_path, host_report, host_s = host.result()
     log(f"[build] {len(built)} CUDA libraries, one nvcc each, and the host library, all "
         f"together in {time.perf_counter() - t0:.2f} s")
@@ -507,10 +541,81 @@ def check_k1(mode: str, label: str, cfg, table, x, noise=None, reps: int = 50) -
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_k1p(mode: str, label: str, cfg, table, noise=None, reps: int = 50) -> dict:
+    """K1p in ``mode`` (q8 with stochastic-rounding ``noise`` where given)
+    against its plain version on the same card tensors: raises unless the
+    codes and the scales are equal bit for bit and the launch counter moved
+    by one; returns the times (device ms by graph replay, of the kernel and
+    of the plain version; per call with the host launch, of both) and the
+    bound."""
+    from atmonr_tpu_torch.ops import hash_gather as hgo
+    from atmonr_tpu_torch.ops.kernel_plan import quantize_plan
+    from atmonr_tpu_torch.utils.timing import graph_ms, median_ms
+
+    key = (mode, cfg.n_dims)
+    before = hgo.quantize_tables.launches[key]
+    codes, scales = hgo.quantize_tables(table, cfg, mode, noise)
+    torch.cuda.synchronize()
+    if hgo.quantize_tables.launches[key] != before + 1:
+        raise RuntimeError("K1p launch counter did not move")
+
+    def plain():
+        if mode == "q8":
+            return hgo.quantize_tables_q8(table, cfg, noise)
+        return hgo.quantize_tables_f8(table, cfg)
+
+    want_codes, want_scales = plain()
+    wrong = int((codes.view(torch.uint8) != want_codes.view(torch.uint8)).sum())
+    if wrong or not torch.equal(scales, want_scales):
+        raise RuntimeError(f"K1p {mode} {label} differs from its plain version: {wrong} codes, "
+                           f"scales equal {torch.equal(scales, want_scales)}")
+    kernel = lambda: hgo.quantize_tables(table, cfg, mode, noise)  # noqa: E731
+    call_ms = median_ms(kernel, reps=reps, warmup=10)
+    ms = graph_ms(kernel)
+    plain_ms = median_ms(plain, reps=10)
+    plain_device_ms = graph_ms(plain)
+    bound_ms, bound_by = k1p_bound(cfg, noise is not None)
+    log(f"[kernel] K1p {mode}{' noise' if noise is not None else ''} {label} D={cfg.n_dims} "
+        f"T={cfg.total_params}: codes and scales equal the plain version's bit for bit, device "
+        f"{ms:.4f} ms, per call with launch {call_ms:.4f} ms, plain {plain_ms:.3f} ms a call "
+        f"(device {plain_device_ms:.4f} ms by graph replay), bound {bound_ms:.4f} ms "
+        f"({bound_by}), library ms null: {K1P_NO_LIBRARY}; "
+        + quantize_plan(cfg).describe())
+    return {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "plain_device_ms": plain_device_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def k1p_rows(label: str, cfg, table, noise) -> list[dict]:
+    """K1p's rows of the kernels line at grid ``cfg``: q8 (the row's times
+    those of the rounding the flagship takes there: stochastic on the
+    position grid, to nearest on the surface grid; the other beside them)
+    and f8."""
+    rows = []
+    rounding = {False: check_k1p("q8", label, cfg, table),
+                True: check_k1p("q8", label, cfg, table, noise)}
+    noisy = cfg.n_dims == 3
+    for mode, res in (("q8", rounding[noisy]), ("f8", check_k1p("f8", label, cfg, table))):
+        noise_note = ", noise" if mode == "q8" and noisy else ""
+        row = {
+            "name": f"quantize {mode} D={cfg.n_dims} ({label} grid{noise_note})",
+            "route": "cuda", "source": K1P_SOURCE, "replaces": K1_REPLACES,
+            "key": ("K1p", mode, cfg.n_dims), "launches": 0, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "plain_device_ms": res["plain_device_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": None,
+        }
+        if mode == "q8":
+            other = rounding[not noisy]
+            row.update({f"ms_{'round' if noisy else 'noise'}": other["ms"],
+                        f"bound_ms_{'round' if noisy else 'noise'}": other["bound_ms"]})
+        rows.append(row)
+    return rows
+
+
 def phase_kernels(encodings: dict, big_encoding: dict) -> list[dict]:
-    """K1 (four table types) and K2 against their plain versions at the
-    flagship shapes, on uniform random points; K1 bf16 D=3 also over the
-    2^21-entry table of ``big_encoding``."""
+    """K1 (four table types), K1p (q8 and f8) and K2 against their plain
+    versions at the flagship shapes, on uniform random points; K1p also at a
+    2^14 position grid; K1 bf16 D=3 also over the 2^21-entry table of
+    ``big_encoding``."""
     from atmonr_tpu_torch.models import hash_grid as hg
 
     dev = torch.device("cuda")
@@ -530,6 +635,7 @@ def phase_kernels(encodings: dict, big_encoding: dict) -> list[dict]:
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"], "library_ms": None,
             })
+        rows += k1p_rows(label, cfg, table, noise)
         g = torch.randn((m, cfg.n_output_dims), generator=gen, device=dev)
         k2 = check_k2(x, g, cfg, 1e-5, f"{label}, uniform points,")
         rows.append({
@@ -546,6 +652,15 @@ def phase_kernels(encodings: dict, big_encoding: dict) -> list[dict]:
             x_cell = 0.37 + 0.9 * cell * torch.rand((m, n_dims), generator=gen, device=dev)
             check_k2(x_cell, g, cfg, 1e-4, f"{label}, all points in one cell of the finest level,")
         del table, noise, x, g
+
+    # K1p at a 2^14 position grid, beside the flagship's 2^13
+    cfg = hg.HashGridConfig.from_options(dict(encodings["pos"], log2_hashmap_size=14), 3)
+    table = torch.rand((cfg.total_params, 2), generator=gen, device=dev) * 2e-4 - 1e-4
+    noise = torch.rand(table.shape, generator=gen, device=dev)
+    for row in k1p_rows("pos 2^14", cfg, table, noise):
+        main = next(r for r in rows if r["key"] == row["key"])
+        main.update({f"{k}_2p14_table": row[k] for k in ("ms", "plain_ms", "bound_ms")})
+    del table, noise
 
     # bf16 over a table that leaves the L2 cache: every gather is a sector
     # from device memory
@@ -644,7 +759,7 @@ def phase_slice(card: str) -> tuple[dict, dict]:
     n_batches = -(-N_EXTRACT // 32768)
     if sigma.shape != (N_EXTRACT, 1) or not np.all(np.isfinite(sigma)) or np.any(sigma < 0):
         raise RuntimeError("extraction result not finite, non-negative, (N, 1)")
-    if launched(counts) != {("K1", "q8", 3): 1 + 5 + n_batches, ("K1", "q8", 2): 5}:
+    if launched(counts) != encodes("q8", 1 + 5 + n_batches, 5):
         raise RuntimeError(f"launches on the inference path: {show(counts)}")
     steady = statistics.median(fwd_s[1:4])
     log(f"[slice] occupancy refresh ({pipe.occ_cfg.num_cells} cells): {refresh_s * 1e3:.2f} ms, "
@@ -659,10 +774,11 @@ def phase_slice(card: str) -> tuple[dict, dict]:
 
 
 def log_profile(prof, label: str, unprofiled_us: float, wall_us: float, card: str,
-                top: int) -> tuple[float, dict]:
+                top: int) -> tuple[float, dict, dict]:
     """Device time by kernel of one profiled call, and the card's idle
     share over the unprofiled call and over the profiled one. Returns the
-    busy microseconds and the microseconds by kernel name."""
+    busy microseconds, and the microseconds and the launches by kernel
+    name."""
     # kernels and copies; not the device-side ranges of user annotations
     # (the optimizer's "Optimizer.step#AdamW.step"), which span their kernels
     events = prof.events()
@@ -682,7 +798,8 @@ def log_profile(prof, label: str, unprofiled_us: float, wall_us: float, card: st
         f"({wall_us:.0f} us), on {card}")
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
         log(f"[profile]   {sum(ts):8.1f} us  x{len(ts):<4d} {name[:90]}")
-    return busy_us, {name: sum(ts) for name, ts in by_name.items()}
+    return (busy_us, {name: sum(ts) for name, ts in by_name.items()},
+            {name: len(ts) for name, ts in by_name.items()})
 
 
 def phase_profile(ctx: dict, card: str) -> None:
@@ -878,7 +995,20 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
     after = read_counts()
     if {k: after[k] - before[k] for k in after if after[k] != before[k]} != step_counts("q8", 1):
         raise RuntimeError(f"the profiled step's launches: {show(before)} -> {show(after)}")
-    log_profile(prof, "train step (no refresh)", med * 1e6, wall_us, card, top=10)
+    busy_us, by_name, n_by_name = log_profile(prof, "train step (no refresh)", med * 1e6,
+                                              wall_us, card, top=10)
+    # the table preparation on the step: K1p's two kernels, and any kernel
+    # left that scatters (the plain quantizer's per-level maximum was a
+    # scatter_reduce, the step's largest device op)
+    k1p = {n: t for n, t in by_name.items() if "quantize_" in n}
+    scatter = {n: t for n, t in by_name.items() if "scatter" in n.lower()}
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[profile] train step: {sum(n_by_name.values())} kernel launches, busy {busy_us:.0f} us; "
+        "largest device ops: "
+        + "; ".join(f"{t:.1f} us x{n_by_name[n]} {n[:60]}" for n, t in largest)
+        + f"; K1p {sum(k1p.values()):.1f} us in {sum(n_by_name[n] for n in k1p)} launches; "
+        "kernels that scatter: " + ("; ".join(f"{t:.1f} us x{n_by_name[n]} {n[:160]}"
+                                              for n, t in scatter.items()) or "none"))
 
     # K2 on one forward's own sample points of the trained model: they
     # cluster where the occupancy grid sends them, and contend
@@ -1023,13 +1153,15 @@ def compare_sigma(tag: str, xyz: np.ndarray, sigma: np.ndarray, pipe, cpu) -> No
 def check_extract(tag: str, grid, sigma: np.ndarray, counts: dict, build_s: float,
                   query_s: float, peak_mib: float, card: str) -> None:
     """A grid's result: finite, non-negative, one value per point, and K1 q8
-    D=3 launched once per 32,768-point batch and nothing else."""
+    D=3 and K1p q8 D=3 launched once per 32,768-point batch and nothing
+    else."""
     n = len(grid)
     batches = -(-n // EXTRACT_BATCH)
     if sigma.shape != (n, 1) or not np.all(np.isfinite(sigma)) or np.any(sigma < 0):
         raise RuntimeError(f"{tag}: sigma not finite, non-negative, (N, 1)")
-    if launched(counts) != {("K1", "q8", 3): batches}:
-        raise RuntimeError(f"{tag}: launches {show(counts)}, expected K1 q8 D=3 x{batches}")
+    if launched(counts) != encodes("q8", batches):
+        raise RuntimeError(f"{tag}: launches {show(counts)}, expected K1 and K1p q8 D=3 "
+                           f"x{batches}")
     log(f"[{tag}] {n} points, shape {grid.shp}: grid built on the host in {build_s:.2f} s; "
         f"run_extraction (both copies included) {query_s:.3f} s = {n / query_s:.0f} points/s; "
         f"K1 launches {show(counts)} for ceil({n}/{EXTRACT_BATCH}) = {batches} batches; peak "
@@ -1784,7 +1916,8 @@ def run_nerf(tag: str, config: dict, ds, card: str, *, steps: int, full: bool) -
         trainer.step(torch.arange(b, device=pipe.device))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, by_name = log_profile(prof, f"{tag} train step", med * 1e6, wall_us, card, top=8)
+    busy_us, by_name, _ = log_profile(prof, f"{tag} train step", med * 1e6, wall_us, card,
+                                      top=8)
     gemm_us = sum(t for name, t in by_name.items()
                   if any(w in name.lower() for w in ("gemm", "xmma", "cutlass", "cublas")))
     log(f"[profile] {tag}: GEMM kernels {gemm_us:.0f} us = {gemm_us / busy_us:.1%} of the device "
@@ -2054,7 +2187,7 @@ def phase_multi_device(ctx: dict, card: str) -> dict:
             paths["multi-device extract"] = read_counts()
             # ---- end of the main path ----
             n = len(grid.xyz)
-            want = {("K1", "q8", 3): -(-n // EXTRACT_BATCH)}
+            want = encodes("q8", -(-n // EXTRACT_BATCH))
             log(f"[multi extract] run_extraction over the mesh of one rank, voxelgrid of {n} "
                 f"points in {query_s:.3f} s = {n / query_s:.0f} points/s (unsharded just before "
                 f"{one_s:.3f} s), on {card}; equal to the unsharded query bit for bit: "
@@ -2125,7 +2258,8 @@ def phase_tools(ctx: dict, card: str, rows: list[dict]) -> dict:
 
     log(f"[tools] launches on the tools path: {show(counts)}")
     rows.append(t2_row(dma))
-    for k in [("T2", None, rpd) for rpd in T2_RPDS] + [("K1", "q8", 3), ("K2", None, 3)]:
+    for k in [("T2", None, rpd) for rpd in T2_RPDS] + [("K1", "q8", 3), ("K1p", "q8", 3),
+                                                         ("K2", None, 3)]:
         if not counts[k]:
             raise RuntimeError(f"{k} was not launched on the tools path")
     for label, out in dma.items():
@@ -2180,7 +2314,7 @@ def _untrained(path: str, ds) -> tuple[dict, str, dict]:
     m = ab_importance.evaluate(pipe, ds)
     m["eval_s"] = time.perf_counter() - t0
     slices = ab_importance.eval_slices(ds.num_rays)
-    return m, mode, {("K1", mode, 3): slices, ("K1", mode, 2): slices}
+    return m, mode, encodes(mode, slices, slices)
 
 
 def phase_quality(ctx: dict, card: str, rows: list[dict]) -> dict:

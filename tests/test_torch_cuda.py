@@ -1,5 +1,6 @@
-"""Kernels K1 (``csrc/hash_gather.cu``), K2 (``csrc/hash_bwd.cu``) and T2
-(``csrc/block_fetch.cu``) against their plain PyTorch versions, on the card,
+"""Kernels K1 (``csrc/hash_gather.cu``), K1p (``csrc/quantize.cu``), K2
+(``csrc/hash_bwd.cu``) and T2 (``csrc/block_fetch.cu``) against their plain
+PyTorch versions, on the card,
 and the paths that take no kernel
 (the NeRF pipeline, the pair-bucket and 4-D position grids) there against
 the CPU. These tests need CUDA and ``nvcc``; they skip where there is no
@@ -145,6 +146,164 @@ def test_quantizers_match_the_cpu(dev):
         assert (sa is None and sb is None) or torch.equal(sa.cpu(), sb), mode
 
 
+# K1p's grids: the flagship's two tables, a 2^14 grid and the largest q8/f8
+# table the gate lets through (32 levels of at most 2^16 rows)
+QUANTIZE_GRIDS = {
+    "pos": (OPTIONS, 3),
+    "surface": (OPTIONS, 2),
+    "2^14": (dict(OPTIONS, log2_hashmap_size=14), 3),
+    "gate 32 x 2^16": (dict(OPTIONS, n_levels=32, log2_hashmap_size=16), 3),
+}
+
+
+def _quantize_case(grid, seed, dev):
+    options, n_dims = QUANTIZE_GRIDS[grid]
+    cfg = hg.HashGridConfig.from_options(options, n_dims)
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-1e-4, 1e-4, (cfg.total_params, 2)).astype(np.float32)
+    noise = rng.uniform(size=table.shape).astype(np.float32)
+    return cfg, torch.from_numpy(table).to(dev), torch.from_numpy(noise).to(dev)
+
+
+def _plain_quantize(table, cfg, mode, noise):
+    """The plain version on the CPU."""
+    table = table.cpu()
+    if mode == "f8":
+        return hgo.quantize_tables_f8(table, cfg)
+    return hgo.quantize_tables_q8(table, cfg, None if noise is None else noise.cpu())
+
+
+def _assert_quantized_equal(got, want):
+    assert got[0].dtype == want[0].dtype and got[0].shape == want[0].shape
+    assert torch.equal(got[0].cpu().view(torch.uint8), want[0].view(torch.uint8))
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("max_blocks", [1, 7, kp.QUANTIZE_MAX_BLOCKS],
+                         ids=["1 block", "7 blocks", "plan"])
+@pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
+@pytest.mark.parametrize("grid", QUANTIZE_GRIDS)
+def test_quantizer_kernel_equals_plain(dev, grid, mode, max_blocks):
+    """K1p's codes and scales equal the plain version's on the CPU bit for
+    bit, in one block, in 7 (ranges that straddle levels) and in the plan's
+    blocks, and its count rises by exactly one a table."""
+    cfg, table, noise = _quantize_case(grid, 70, dev)
+    u = noise if mode == "q8 noise" else None
+    before = dict(hgo.quantize_tables.launches)
+    got = hgo.quantize_tables(table, cfg, mode[:2], u, max_blocks)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in hgo.quantize_tables.launches.items() if v != before[k]}
+    assert moved == {(mode[:2], cfg.n_dims): 1}
+    _assert_quantized_equal(got, _plain_quantize(table, cfg, mode[:2], u))
+
+
+@pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
+@pytest.mark.parametrize("grid", QUANTIZE_GRIDS)
+def test_plain_quantizer_on_the_card_equals_the_cpu(dev, grid, mode):
+    """The plain version that K1p is held to runs its divisions as true
+    float32 divisions on the card too (PyTorch's CUDA division by a Python
+    number multiplies by the reciprocal): equal to the CPU's bit for bit."""
+    cfg, table, noise = _quantize_case(grid, 73, dev)
+    u = noise if mode == "q8 noise" else None
+    got = (hgo.quantize_tables_f8(table, cfg) if mode == "f8"
+           else hgo.quantize_tables_q8(table, cfg, u))
+    _assert_quantized_equal(got, _plain_quantize(table, cfg, mode[:2], u))
+
+
+def _edge_table(cfg, dev):
+    """The flagship position grid's table with four crafted levels: level 1
+    all zeros (scale 1e-30 / 127); level 2 with max|t| 127 (q8 scale 1) and
+    entries at exactly k + 0.5 (round half to even); level 3 with a max m
+    whose q8 quotient m / (m / 127) rounds above 127, so noise lifts its
+    code to 128 (clamped to 127) and -m floors to -128 (clamped to -127);
+    level 4 with max 448 * 2^-20 (m / 448 a power of two: f8 scale 2^-20).
+    Returns (table, noise, where level 3's m and -m are)."""
+    rng = np.random.default_rng(71)
+    table = rng.uniform(-1e-4, 1e-4, (cfg.total_params, 2)).astype(np.float32)
+    noise = np.zeros_like(table)
+    off = cfg.level_offsets
+    table[off[1]:off[2]] = 0.0
+    table[off[2]:off[3]] *= np.float32(1e4)
+    table[off[2]:off[2] + 6, 0] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5]
+    cands = rng.uniform(1e-4, 1e-2, 4096).astype(np.float32)
+    m = next(c for c in cands if c / (c / np.float32(127)) > np.float32(127))
+    table[off[3]:off[4]] *= np.float32(m / 2e-4)
+    at = (off[3] + 5, off[3] + 9)
+    table[at[0], 1], table[at[1], 0] = m, -m
+    noise[at[0], 1] = np.nextafter(np.float32(1), np.float32(0))
+    table[off[4] + 3, 1] = -np.float32(448.0 * 2.0**-20)
+    return torch.from_numpy(table).to(dev), torch.from_numpy(noise).to(dev), at
+
+
+@pytest.mark.parametrize("max_blocks", [7, kp.QUANTIZE_MAX_BLOCKS], ids=["7 blocks", "plan"])
+@pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
+def test_quantizer_kernel_edge_cases(dev, mode, max_blocks):
+    """The crafted levels of ``_edge_table``: bit-equal to the plain version,
+    with the values each edge case implies."""
+    cfg = hg.HashGridConfig.from_options(OPTIONS, 3)
+    table, noise, at = _edge_table(cfg, dev)
+    u = noise if mode == "q8 noise" else None
+    codes, scales = hgo.quantize_tables(table, cfg, mode[:2], u, max_blocks)
+    _assert_quantized_equal((codes, scales), _plain_quantize(table, cfg, mode[:2], u))
+    codes, scales, off = codes.cpu(), scales.cpu(), cfg.level_offsets
+    if mode == "f8":
+        assert scales[4].item() == 2.0**-20 and codes[off[4] + 3, 1].float().item() == -448.0
+        return
+    assert scales[1].item() == float(np.float32(np.float32(1e-30) / np.float32(127)))
+    assert scales[2].item() == 1.0 and not codes[off[1]:off[2]].any()
+    if u is None:
+        assert codes[off[2]:off[2] + 6, 0].tolist() == [127, 0, 2, 2, 0, -2]
+    assert codes[at[0], 1].item() == 127 and codes[at[1], 0].item() == -127
+
+
+def test_quantizer_kernel_keeps_a_nan_in_the_scale(dev):
+    """A level holding a NaN has a NaN scale, as ``torch.clamp`` keeps it in
+    the plain version (``fmaxf`` would drop it); the other levels are equal."""
+    cfg = hg.HashGridConfig.from_options(OPTIONS, 3)
+    table = _edge_table(cfg, dev)[0]
+    table[cfg.level_offsets[5] + 2, 0] = float("nan")
+    for mode in ("q8", "f8"):
+        got = hgo.quantize_tables(table, cfg, mode)[1].cpu()
+        want = _plain_quantize(table, cfg, mode, None)[1]
+        if mode == "q8":
+            assert got[5].isnan() and want[5].isnan()
+        keep = torch.arange(cfg.n_levels) != 5
+        assert torch.equal(got[keep], want[keep])
+
+
+def test_prepare_table_takes_the_quantizer_kernel_or_raises(dev, monkeypatch):
+    """On the card ``prepare_table`` in q8 and f8 is K1p and nothing else:
+    with the plain version made to raise it still returns the plain
+    version's numbers, a misaligned or strided table included; inputs the
+    kernel does not take raise and launch nothing."""
+    cfg, table, noise = _quantize_case("pos", 72, dev)
+    want = {mode: _plain_quantize(table, cfg, mode, noise if mode == "q8" else None)
+            for mode in ("q8", "f8")}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain quantizer ran on a CUDA tensor")
+
+    monkeypatch.setattr(hgo, "quantize_tables_q8", refuse)
+    monkeypatch.setattr(hgo, "quantize_tables_f8", refuse)
+    flat = torch.empty(table.numel() + 1, device=dev)
+    misaligned = flat[1:].view(table.shape)
+    misaligned.copy_(table)
+    strided = table.t().contiguous().t()
+    for mode in ("q8", "f8"):
+        for t in (table, misaligned, strided):
+            before = hgo.quantize_tables.launches[(mode, 3)]
+            got = hgo.prepare_table(t, cfg, mode, noise)
+            assert hgo.quantize_tables.launches[(mode, 3)] == before + 1
+            _assert_quantized_equal(got, want[mode])
+    before = dict(hgo.quantize_tables.launches)
+    for args in ((table.double(), cfg, "q8"), (table, cfg, "q8", noise.cpu()),
+                 (table, cfg, "q8", noise.double()), (table, cfg, "f8", noise),
+                 (table[:-8], cfg, "q8"), (table, cfg, "bf16")):
+        with pytest.raises(ValueError):
+            hgo.quantize_tables(*args)
+    assert hgo.quantize_tables.launches == before
+
+
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 1.5), (0.4, 0.41)], ids=["in", "out", "clustered"])
 @pytest.mark.parametrize("n_dims", [2, 3])
 def test_bwd_kernel_matches_plain(dev, n_dims, lo, hi):
@@ -256,11 +415,15 @@ def test_q8_autograd_runs_both_kernels(dev, n_dims, mode):
     cfg = hg.HashGridConfig.from_options(dict(OPTIONS, fwd_mode=mode), n_dims)
     table.requires_grad_()
     g = torch.from_numpy(np.random.default_rng(21).normal(size=(3000, 32)).astype(np.float32)).to(dev)
-    before = (hgo.hash_gather.launches[(mode, n_dims)], hbo.hash_bwd.launches[n_dims])
+    before = (hgo.hash_gather.launches[(mode, n_dims)], hbo.hash_bwd.launches[n_dims],
+              dict(hgo.quantize_tables.launches))
     (got,) = torch.autograd.grad(hg.hash_encode(table, x, cfg, noise), table, g)
     torch.cuda.synchronize()
     assert (hgo.hash_gather.launches[(mode, n_dims)], hbo.hash_bwd.launches[n_dims]) == (
         before[0] + 1, before[1] + 1)
+    # the q8 and f8 encodes prepare their table with K1p, once
+    assert {k: v - before[2][k] for k, v in hgo.quantize_tables.launches.items()
+            if v != before[2][k]} == ({(mode, n_dims): 1} if mode in ("q8", "f8") else {})
     want = hbo.hash_bwd_plain(x.cpu(), g.cpu(), cfg)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
