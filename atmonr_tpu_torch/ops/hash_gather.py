@@ -44,7 +44,8 @@ from atmonr_tpu_torch.models.hash_grid import (
 )
 from atmonr_tpu_torch.ops.hash_bwd import check_grid, hash_bwd, level_args
 from atmonr_tpu_torch.ops.kernel_plan import (
-    QUANTIZE_MAX_BLOCKS,
+    QUANTIZE_CLUSTER,
+    QuantizePlan,
     level_plan,
     quantize_plan,
 )
@@ -132,35 +133,75 @@ def prepare_table(
 
 
 @functools.cache
-def _quantize_kernel():
-    """The C entry point of ``csrc/quantize.cu``, built at first use."""
+def _quantize_library():
+    """The library of ``csrc/quantize.cu``, built at first use, with its C
+    entry points' signatures set."""
     from atmonr_tpu_torch import _build
 
-    fn = _build.load("quantize").quantize_tables
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    lib = _build.load("quantize")
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    lib.quantize_tables.restype = c_int
+    lib.quantize_tables.argtypes = [
+        c_ptr, c_ptr, c_ptr, c_ptr, ctypes.c_longlong, c_int, ctypes.POINTER(c_int),
+        ctypes.POINTER(c_int), c_int, c_int, c_int, c_ptr,
     ]
-    return fn
+    lib.quantize_max_active_clusters.restype = c_int
+    lib.quantize_max_active_clusters.argtypes = [
+        c_int, c_int, c_int, c_int, c_int, ctypes.POINTER(c_int),
+    ]
+    lib.quantize_launch_floor.restype = c_int
+    lib.quantize_launch_floor.argtypes = [c_int, c_int, c_int, c_ptr]
+    return lib
+
+
+@functools.cache
+def quantize_max_active_clusters(plan: QuantizePlan, mode: str, noise: bool,
+                                 device_index: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K1p's launch in ``plan`` for
+    ``mode`` (with ``noise``) on card ``device_index``: how many of its
+    clusters the card can hold at once. It also allows the kernel its noise
+    stage's shared memory on that card, which ``quantize_tables`` needs
+    before its first launch there. Raises where the query fails; 0 means
+    the launch cannot be scheduled."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _quantize_library().quantize_max_active_clusters(
+            int(mode == "f8"), int(noise), len(plan.sizes), plan.cluster, plan.threads,
+            ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"quantize_tables ({mode}): cluster occupancy query failed: "
+                           f"CUDA error {err}")
+    return out.value
+
+
+def quantize_launch_floor(plan: QuantizePlan, device: torch.device) -> None:
+    """One launch of an empty kernel in ``plan``'s grid and cluster shape on
+    the current stream: the fixed cost under K1p's time, for the
+    measurement scripts. It counts nowhere and no path calls it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _quantize_library().quantize_launch_floor(len(plan.sizes), plan.cluster,
+                                                         plan.threads, stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_launch_floor failed: CUDA error {err}")
 
 
 def quantize_tables(
     table: torch.Tensor, cfg: HashGridConfig, mode: str, noise: torch.Tensor | None = None,
-    max_blocks: int = QUANTIZE_MAX_BLOCKS,
+    cluster: int = QUANTIZE_CLUSTER,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1p: the (total_params, 2) float32 master table -> (int8 or
     float8_e4m3fn (total_params, 2) codes, (L,) f32 scales) for ``mode``
     ``"q8"`` (``noise``: stochastic rounding) or ``"f8"`` (no noise).
 
     CUDA tensors go to the kernel of ``csrc/quantize.cu`` (built at first
-    use) on the current stream, in the blocks of ``quantize_plan(cfg,
-    max_blocks)``, and each call adds one to
-    ``quantize_tables.launches[(mode, D)]``; a failed build or launch
-    raises. CPU tensors go to the plain version, ``quantize_tables_q8`` or
-    ``quantize_tables_f8``, equal to the kernel bit for bit. Other devices
-    raise."""
+    use) on the current stream: one launch in ``quantize_plan(cfg,
+    cluster)``, a cluster of ``cluster`` blocks a level, and each call adds
+    one to ``quantize_tables.launches[(mode, D)]``. A failed build or launch
+    raises, and so does a plan whose clusters the card cannot schedule
+    (checked once a plan). CPU tensors go to the plain version,
+    ``quantize_tables_q8`` or ``quantize_tables_f8``, equal to the kernel
+    bit for bit. Other devices raise."""
     check_grid(cfg, "the table quantizer")
     if mode not in _SCALED:
         raise ValueError(f"the table quantizer takes modes {_SCALED}, not {mode!r}")
@@ -178,7 +219,10 @@ def quantize_tables(
         return quantize_tables_f8(table, cfg)
     if table.device.type != "cuda":
         raise ValueError(f"no table quantizer for device {table.device}")
-    plan = quantize_plan(cfg, max_blocks)
+    plan = quantize_plan(cfg, cluster)
+    if quantize_max_active_clusters(plan, mode, noise is not None, table.device.index) < 1:
+        raise RuntimeError(f"quantize_tables ({mode}): the card cannot schedule a cluster of "
+                           f"{plan.cluster} blocks of {plan.threads} threads")
 
     def aligned(t):  # the kernel reads float4s
         t = t.contiguous()
@@ -188,13 +232,13 @@ def quantize_tables(
     noise = None if noise is None else aligned(noise)
     codes = torch.empty(shape, dtype=TABLE_DTYPES[mode], device=table.device)
     scales = torch.empty((cfg.n_levels,), dtype=torch.float32, device=table.device)
-    partials = torch.empty(plan.partials_shape, dtype=torch.int32, device=table.device)
+    slice_rows = (ctypes.c_int * cfg.n_levels)(*plan.slice_rows)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = _quantize_kernel()(
-            table.data_ptr(), None if noise is None else noise.data_ptr(), partials.data_ptr(),
-            codes.data_ptr(), scales.data_ptr(), cfg.total_params, cfg.n_levels,
-            level_args(cfg)[2], int(mode == "f8"), plan.blocks, plan.block_rows, stream,
+        err = _quantize_library().quantize_tables(
+            table.data_ptr(), None if noise is None else noise.data_ptr(), codes.data_ptr(),
+            scales.data_ptr(), cfg.total_params, cfg.n_levels, level_args(cfg)[2], slice_rows,
+            int(mode == "f8"), plan.cluster, plan.threads, stream,
         )
     if err != 0:
         raise RuntimeError(f"quantize_tables ({mode}) launch failed: CUDA error {err}")

@@ -25,8 +25,9 @@ The plan is a function of the grid config, the number of points and the
 bytes of a row alone. The thresholds are the constants below; ``PERF.md``
 holds the measurement that set each one (``scripts/bench_kernels.py``).
 
-K1p (``csrc/quantize.cu``, the q8/f8 table preparation) cuts the flat table
-into equal row ranges, one a block, whatever the levels: ``quantize_plan``.
+K1p (``csrc/quantize.cu``, the q8/f8 table preparation) takes each level
+with one cluster of blocks, each block a slice of the level's rows:
+``quantize_plan``.
 """
 
 from __future__ import annotations
@@ -72,13 +73,16 @@ CHUNK_ADDS_PER_ROW = 8
 MIN_DIRECT_THREADS = 132 * 2048
 
 
-# K1p (csrc/quantize.cu): blocks of QUANTIZE_THREADS threads, a float4 (two
-# table rows) a thread in each pass over a block's range, and at most
-# QUANTIZE_MAX_BLOCKS blocks: 8 blocks of 256 threads fill an SM's 2,048, on
-# the card's 132 SMs. A block's range is a whole number of QUANTIZE_ALIGN
-# rows, the unit every level's offset and size are a multiple of.
-QUANTIZE_THREADS = 256  # kQuantizeThreads
-QUANTIZE_MAX_BLOCKS = 132 * 8
+# K1p (csrc/quantize.cu): one cluster of QUANTIZE_CLUSTER blocks a level (8,
+# the portable maximum of a cluster), each block a slice of the level of a
+# whole number of QUANTIZE_ALIGN rows, the unit every level's offset and size
+# are a multiple of. A thread keeps up to QUANTIZE_VECS float4s (two rows
+# each) of its slice in registers: blocks of QUANTIZE_THREADS threads, or
+# twice as many where that would leave a thread more.
+QUANTIZE_CLUSTER = 8
+QUANTIZE_CLUSTERS = (1, 2, 4, 8)
+QUANTIZE_THREADS = 256
+QUANTIZE_VECS = 8  # kVecs
 QUANTIZE_ALIGN = 8
 
 
@@ -174,45 +178,59 @@ def level_plan(cfg: HashGridConfig, m: int, row_bytes: int, scatter: bool) -> Le
 
 @dataclass(frozen=True)
 class QuantizePlan:
-    """How K1p cuts a table of ``rows`` rows: block b takes the flat rows
-    ``[b * block_rows, min((b + 1) * block_rows, rows))``, ranges that may
-    straddle level boundaries, and both launches use the same ranges. The
-    blocks' per-level maxima are a ``partials_shape`` = (blocks, levels)
-    scratch array."""
+    """How K1p takes a grid's table: one launch of ``blocks`` = levels x
+    ``cluster`` blocks of ``threads`` threads, in clusters of ``cluster``.
+    Cluster l is level l (``offsets[l]``, ``sizes[l]`` rows), and its block
+    r takes the rows ``slice(l, r)``: ``slice_rows[l]`` rows from
+    ``offsets[l] + r * slice_rows[l]``, cut at the level's end."""
 
-    rows: int
-    blocks: int
-    block_rows: int
-    n_levels: int
+    cluster: int
+    threads: int
+    offsets: tuple[int, ...]
+    sizes: tuple[int, ...]
+    slice_rows: tuple[int, ...]
 
     @property
-    def partials_shape(self) -> tuple[int, int]:
-        return (self.blocks, self.n_levels)
+    def blocks(self) -> int:
+        return len(self.sizes) * self.cluster
 
-    def block_span(self, b: int) -> tuple[int, int]:
-        """Block ``b``'s rows, [first, end)."""
-        return b * self.block_rows, min((b + 1) * self.block_rows, self.rows)
+    @property
+    def rounds(self) -> int:
+        """Passes of a block over its largest slice: 1 where every thread
+        keeps its float4s in registers and reads the table once."""
+        per_round = self.threads * QUANTIZE_VECS
+        return max(-(-(s // 2) // per_round) for s in self.slice_rows)
 
-    def level_blocks(self, offset: int, size: int) -> range:
-        """The blocks whose ranges hold rows of the level at ``offset`` with
-        ``size`` rows: those whose partials make its maximum."""
-        return range(offset // self.block_rows, (offset + size - 1) // self.block_rows + 1)
+    def slice(self, level: int, rank: int) -> tuple[int, int]:
+        """Block ``rank`` of cluster ``level``'s rows, [first, end); empty
+        where the level ends before it."""
+        end = self.offsets[level] + self.sizes[level]
+        first = min(self.offsets[level] + rank * self.slice_rows[level], end)
+        return first, min(first + self.slice_rows[level], end)
 
     def describe(self) -> str:
-        return (f"{self.blocks} blocks of {QUANTIZE_THREADS} threads, {self.block_rows} rows "
-                f"a block; partials {self.blocks} x {self.n_levels}")
+        reads = "one read" if self.rounds == 1 else f"{self.rounds} rounds, two reads"
+        return (f"{len(self.sizes)} clusters of {self.cluster} blocks of {self.threads} threads, "
+                f"slices of {min(self.slice_rows)}-{max(self.slice_rows)} rows, {reads}")
 
 
 @functools.cache
-def quantize_plan(cfg: HashGridConfig, max_blocks: int = QUANTIZE_MAX_BLOCKS) -> QuantizePlan:
-    """K1p's blocks for grid ``cfg``: as many as give every thread one
-    float4, at most ``max_blocks``, each a whole number of 8-row units."""
+def quantize_plan(cfg: HashGridConfig, cluster: int = QUANTIZE_CLUSTER) -> QuantizePlan:
+    """K1p's launch for grid ``cfg``: a cluster of ``cluster`` blocks a level,
+    each level cut into ``cluster`` slices of equal whole 8-row units, and
+    256 threads a block, or 512 where 256 would leave a thread more than
+    ``QUANTIZE_VECS`` float4s."""
     if cfg.n_levels > MAX_LEVELS:
         raise ValueError(f"the table quantizer takes <= {MAX_LEVELS} levels")
-    rows = cfg.total_params
-    if max_blocks < 1 or rows % QUANTIZE_ALIGN or any(
-            o % QUANTIZE_ALIGN for o in cfg.level_offsets):
-        raise ValueError(f"no quantizer plan for {rows} rows in {max_blocks} blocks")
-    blocks = min(-(-rows // (2 * QUANTIZE_THREADS)), max_blocks)
-    block_rows = _round_up(-(-rows // blocks), QUANTIZE_ALIGN)
-    return QuantizePlan(rows, -(-rows // block_rows), block_rows, cfg.n_levels)
+    if cluster not in QUANTIZE_CLUSTERS:
+        raise ValueError(f"the table quantizer takes clusters of {QUANTIZE_CLUSTERS} blocks, "
+                         f"not {cluster}")
+    sizes = tuple(cfg.level_sizes)
+    if any(o % QUANTIZE_ALIGN for o in cfg.level_offsets) or any(
+            s % QUANTIZE_ALIGN for s in sizes):
+        raise ValueError(f"no quantizer plan: level offsets and sizes must be multiples of "
+                         f"{QUANTIZE_ALIGN} rows")
+    slice_rows = tuple(_round_up(-(-s // cluster), QUANTIZE_ALIGN) for s in sizes)
+    vecs = -(-max(slice_rows) // 2)
+    threads = QUANTIZE_THREADS if vecs <= QUANTIZE_THREADS * QUANTIZE_VECS else 2 * QUANTIZE_THREADS
+    return QuantizePlan(cluster, threads, tuple(cfg.level_offsets), sizes, slice_rows)

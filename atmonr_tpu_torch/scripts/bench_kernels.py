@@ -17,8 +17,10 @@ set from this script's output; ``PERF.md`` holds the numbers.
 ``--quantize`` holds K1p to its plain version bit for bit on every table of
 ``QUANTIZE_SHAPES``, in q8 with and without stochastic-rounding noise and in
 f8, then prints the device time of both by CUDA-graph replay beside K1p's
-bound (its bytes over 3.35 TB/s) and the block geometry of
-``kernel_plan.quantize_plan``.
+bound (its bytes over 3.35 TB/s), its launch floor (an empty kernel in the
+same grid and cluster shape) and the launch geometry of
+``kernel_plan.quantize_plan``; then, in q8 with noise, K1p's device time in
+clusters of 1, 2, 4 and 8 blocks a level.
 
 Points: ``uniform`` in [0, 1)^D; ``rays``: 24 consecutive samples along each
 of M / 24 random rays, in a tenth of the ray's length, as an occupancy
@@ -149,12 +151,31 @@ def bench_k1p(mode: str, table, noise, cfg) -> None:
         raise RuntimeError(f"K1p {mode} differs from its plain version")
     rows = cfg.total_params
     n_bytes = rows * (8 + (8 if noise is not None else 0) + 2) + cfg.n_levels * 4
+    plan = kp.quantize_plan(cfg)
     ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    floor_ms = graph_ms(lambda: hgo.quantize_launch_floor(plan, table.device))
     label = f"{mode}{' noise' if noise is not None else ''}"
+    resident = hgo.quantize_max_active_clusters(plan, mode, noise is not None,
+                                                table.device.index)
     print(f"[bench] K1p {label:8s} 2^{cfg.log2_hashmap_size} D={cfg.n_dims} L={cfg.n_levels} "
-          f"T={rows}: device {ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x), bound "
-          f"{1e3 * n_bytes / PEAK_BYTES_S:.4f} ms ({n_bytes / 1e6:.2f} MB), equal; "
-          f"{kp.quantize_plan(cfg).describe()}", flush=True)
+          f"T={rows}: device {ms:.4f} ms, launch floor {floor_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x), bound {1e3 * n_bytes / PEAK_BYTES_S:.4f} ms "
+          f"({n_bytes / 1e6:.2f} MB), equal; {plan.describe()}, {resident} clusters resident "
+          "at once", flush=True)
+
+
+def bench_k1p_clusters(table, noise, cfg) -> None:
+    """K1p in q8 with ``noise`` in every cluster size, each held to the plan's
+    result bit for bit, then timed."""
+    want_codes, want_scales = hgo.quantize_tables(table, cfg, "q8", noise)
+    times = []
+    for cluster in kp.QUANTIZE_CLUSTERS:
+        codes, scales = hgo.quantize_tables(table, cfg, "q8", noise, cluster)
+        if not (torch.equal(codes, want_codes) and torch.equal(scales, want_scales)):
+            raise RuntimeError(f"K1p in clusters of {cluster} differs from the plan's")
+        ms = graph_ms(lambda c=cluster: hgo.quantize_tables(table, cfg, "q8", noise, c))
+        times.append(f"{cluster}: {ms:.4f} ms ({kp.quantize_plan(cfg, cluster).describe()})")
+    print(f"[bench] K1p q8 noise by cluster size: {'; '.join(times)}", flush=True)
 
 
 def sass_atomics(names=("hash_bwd", "hash_gather")) -> None:
@@ -172,7 +193,8 @@ def sass_atomics(names=("hash_bwd", "hash_gather")) -> None:
         counts: dict[str, int] = {}
         for line in sass.splitlines():
             for word in line.replace(";", " ").split():
-                if word.startswith(("ATOMS", "ATOMG", "ATOM.", "RED.", "REDG", "BAR", "MEMBAR")):
+                if word.startswith(("ATOMS", "ATOMG", "ATOM.", "RED.", "REDG", "BAR", "MEMBAR",
+                                    "UCGABAR")):
                     counts[word] = counts.get(word, 0) + 1
         print(f"[sass] {name}: {counts}")
 
@@ -247,6 +269,7 @@ def quantize_main(wanted: list[str]) -> None:
         print(f"[bench] {label}", flush=True)
         for mode, u in (("q8", None), ("q8", noise), ("f8", None)):
             bench_k1p(mode, table, u, cfg)
+        bench_k1p_clusters(table, noise, cfg)
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ Phases, each of which raises on failure:
    (the q8/f8 table preparation, ``csrc/quantize.cu``) at both flagship
    tables and a 2^14 position table, q8 with and without stochastic-rounding
    noise and f8: codes and scales equal to its plain version's bit for bit,
-   its device ms and the plain version's (graph replay) beside its bound.
+   its device ms and the plain version's (graph replay) beside its bound and
+   its launch floor (an empty kernel in its grid and cluster shape).
 4. Slice: loads ``configs/instant_ngp_tpu_occ13.json`` unchanged, builds a
    ``synthetic:128x64x2`` granule and the pipeline on the card (random
    weights from seed 0), refreshes the occupancy grid once, renders 4 batches
@@ -51,7 +52,9 @@ Phases, each of which raises on failure:
    that K1 (with K1p, which prepares its q8 table) and K2 ran once per grid
    per step (K1 once more per refresh). Then times 16-step
    blocks of steady steps, profiles one step (a line with its launches, its
-   largest device ops, K1p's time and every kernel left that scatters),
+   largest device ops, K1p's time and every kernel left that scatters; K1p
+   must be its one clustered kernel, launched once for each of the two
+   tables),
    holds K2 to its plain
    version on one forward's own sample points (<= 1e-4 * max|dW|: they
    cluster, and a row sums tens of thousands of terms in two orders; the
@@ -574,15 +577,19 @@ def check_k1p(mode: str, label: str, cfg, table, noise=None, reps: int = 50) -> 
     ms = graph_ms(kernel)
     plain_ms = median_ms(plain, reps=10)
     plain_device_ms = graph_ms(plain)
+    plan = quantize_plan(cfg)
+    # an empty kernel in K1p's grid and cluster shape: the launch's own cost
+    floor_ms = graph_ms(lambda: hgo.quantize_launch_floor(plan, table.device))
     bound_ms, bound_by = k1p_bound(cfg, noise is not None)
     log(f"[kernel] K1p {mode}{' noise' if noise is not None else ''} {label} D={cfg.n_dims} "
         f"T={cfg.total_params}: codes and scales equal the plain version's bit for bit, device "
-        f"{ms:.4f} ms, per call with launch {call_ms:.4f} ms, plain {plain_ms:.3f} ms a call "
-        f"(device {plain_device_ms:.4f} ms by graph replay), bound {bound_ms:.4f} ms "
-        f"({bound_by}), library ms null: {K1P_NO_LIBRARY}; "
-        + quantize_plan(cfg).describe())
+        f"{ms:.4f} ms, launch floor {floor_ms:.4f} ms, per call with launch {call_ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms a call (device {plain_device_ms:.4f} ms by graph replay), "
+        f"bound {bound_ms:.4f} ms ({bound_by}), library ms null: {K1P_NO_LIBRARY}; "
+        + plan.describe())
     return {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "plain_device_ms": plain_device_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_device_ms": plain_device_ms, "launch_floor_ms": floor_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def k1p_rows(label: str, cfg, table, noise) -> list[dict]:
@@ -601,7 +608,8 @@ def k1p_rows(label: str, cfg, table, noise) -> list[dict]:
             "route": "cuda", "source": K1P_SOURCE, "replaces": K1_REPLACES,
             "key": ("K1p", mode, cfg.n_dims), "launches": 0, "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"], "plain_device_ms": res["plain_device_ms"],
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": None,
+            "launch_floor_ms": res["launch_floor_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
         }
         if mode == "q8":
             other = rounding[not noisy]
@@ -997,10 +1005,16 @@ def phase_train(ctx: dict, card: str, rows: list[dict]) -> dict:
         raise RuntimeError(f"the profiled step's launches: {show(before)} -> {show(after)}")
     busy_us, by_name, n_by_name = log_profile(prof, "train step (no refresh)", med * 1e6,
                                               wall_us, card, top=10)
-    # the table preparation on the step: K1p's two kernels, and any kernel
-    # left that scatters (the plain quantizer's per-level maximum was a
-    # scatter_reduce, the step's largest device op)
+    # the table preparation on the step: K1p's one clustered kernel, one
+    # launch a table (its instances differ by mode and noise alone), and any
+    # kernel left that scatters (the plain quantizer's per-level maximum was
+    # a scatter_reduce, the step's largest device op)
     k1p = {n: t for n, t in by_name.items() if "quantize_" in n}
+    k1p_kernels = {"quantize_kernel" if "quantize_kernel" in n else n for n in k1p}
+    if k1p_kernels != {"quantize_kernel"} or sum(n_by_name[n] for n in k1p) != 2:
+        raise RuntimeError(f"the profiled step's K1p kernels: {sorted(k1p)} x "
+                           f"{[n_by_name[n] for n in sorted(k1p)]}, expected quantize_kernel "
+                           "launched twice (one launch for each of the two tables)")
     scatter = {n: t for n, t in by_name.items() if "scatter" in n.lower()}
     largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     log(f"[profile] train step: {sum(n_by_name.values())} kernel launches, busy {busy_us:.0f} us; "

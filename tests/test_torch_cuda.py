@@ -179,18 +179,21 @@ def _assert_quantized_equal(got, want):
     assert torch.equal(got[1].cpu(), want[1])
 
 
-@pytest.mark.parametrize("max_blocks", [1, 7, kp.QUANTIZE_MAX_BLOCKS],
-                         ids=["1 block", "7 blocks", "plan"])
+# clusters of 1 block (a level in one block), 2 and the plan's 8
+CLUSTERS = {"cluster 1": 1, "cluster 2": 2, "plan": kp.QUANTIZE_CLUSTER}
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS.values(), ids=CLUSTERS)
 @pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
 @pytest.mark.parametrize("grid", QUANTIZE_GRIDS)
-def test_quantizer_kernel_equals_plain(dev, grid, mode, max_blocks):
+def test_quantizer_kernel_equals_plain(dev, grid, mode, cluster):
     """K1p's codes and scales equal the plain version's on the CPU bit for
-    bit, in one block, in 7 (ranges that straddle levels) and in the plan's
-    blocks, and its count rises by exactly one a table."""
+    bit, in clusters of 1, 2 and the plan's 8 blocks a level, and its count
+    rises by exactly one a table."""
     cfg, table, noise = _quantize_case(grid, 70, dev)
     u = noise if mode == "q8 noise" else None
     before = dict(hgo.quantize_tables.launches)
-    got = hgo.quantize_tables(table, cfg, mode[:2], u, max_blocks)
+    got = hgo.quantize_tables(table, cfg, mode[:2], u, cluster)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in hgo.quantize_tables.launches.items() if v != before[k]}
     assert moved == {(mode[:2], cfg.n_dims): 1}
@@ -235,15 +238,15 @@ def _edge_table(cfg, dev):
     return torch.from_numpy(table).to(dev), torch.from_numpy(noise).to(dev), at
 
 
-@pytest.mark.parametrize("max_blocks", [7, kp.QUANTIZE_MAX_BLOCKS], ids=["7 blocks", "plan"])
+@pytest.mark.parametrize("cluster", [2, kp.QUANTIZE_CLUSTER], ids=["cluster 2", "plan"])
 @pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
-def test_quantizer_kernel_edge_cases(dev, mode, max_blocks):
+def test_quantizer_kernel_edge_cases(dev, mode, cluster):
     """The crafted levels of ``_edge_table``: bit-equal to the plain version,
     with the values each edge case implies."""
     cfg = hg.HashGridConfig.from_options(OPTIONS, 3)
     table, noise, at = _edge_table(cfg, dev)
     u = noise if mode == "q8 noise" else None
-    codes, scales = hgo.quantize_tables(table, cfg, mode[:2], u, max_blocks)
+    codes, scales = hgo.quantize_tables(table, cfg, mode[:2], u, cluster)
     _assert_quantized_equal((codes, scales), _plain_quantize(table, cfg, mode[:2], u))
     codes, scales, off = codes.cpu(), scales.cpu(), cfg.level_offsets
     if mode == "f8":
@@ -258,17 +261,75 @@ def test_quantizer_kernel_edge_cases(dev, mode, max_blocks):
 
 def test_quantizer_kernel_keeps_a_nan_in_the_scale(dev):
     """A level holding a NaN has a NaN scale, as ``torch.clamp`` keeps it in
-    the plain version (``fmaxf`` would drop it); the other levels are equal."""
+    the plain version (``fmaxf`` would drop it), in every cluster size, with
+    the NaN in rank 0's slice and in the last rank's where the level is cut;
+    the other levels are equal."""
     cfg = hg.HashGridConfig.from_options(OPTIONS, 3)
-    table = _edge_table(cfg, dev)[0]
-    table[cfg.level_offsets[5] + 2, 0] = float("nan")
-    for mode in ("q8", "f8"):
-        got = hgo.quantize_tables(table, cfg, mode)[1].cpu()
-        want = _plain_quantize(table, cfg, mode, None)[1]
-        if mode == "q8":
-            assert got[5].isnan() and want[5].isnan()
-        keep = torch.arange(cfg.n_levels) != 5
-        assert torch.equal(got[keep], want[keep])
+    keep = torch.arange(cfg.n_levels) != 5
+    for row in (2, cfg.level_sizes[5] - 2):
+        table = _edge_table(cfg, dev)[0]
+        table[cfg.level_offsets[5] + row, 0] = float("nan")
+        for mode in ("q8", "f8"):
+            want = _plain_quantize(table, cfg, mode, None)[1]
+            for cluster in CLUSTERS.values():
+                got = hgo.quantize_tables(table, cfg, mode, None, cluster)[1].cpu()
+                if mode == "q8":
+                    assert got[5].isnan() and want[5].isnan()
+                assert torch.equal(got[keep], want[keep])
+
+
+def test_quantizer_kernel_is_one_launch(dev):
+    """A call is one launch of one kernel: the counter moves by one, and the
+    profiler's trace holds exactly one kernel, the clustered quantizer, and
+    no other device work beside the outputs' allocation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, table, noise = _quantize_case("pos", 74, dev)
+    hgo.quantize_tables(table, cfg, "q8", noise)  # built, occupancy checked
+    torch.cuda.synchronize()
+    before = hgo.quantize_tables.launches[("q8", 3)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hgo.quantize_tables(table, cfg, "q8", noise)
+        torch.cuda.synchronize()
+    assert hgo.quantize_tables.launches[("q8", 3)] == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    assert len(names) == 1 and "quantize_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
+def test_quantizer_kernel_replays_in_a_cuda_graph(dev, mode):
+    """A CUDA graph captures the cluster launch, and its replays, on a table
+    changed in place between them, equal the plain version bit for bit."""
+    cfg, table, noise = _quantize_case("gate 32 x 2^16", 75, dev)
+    u = noise if mode == "q8 noise" else None
+    hgo.quantize_tables(table, cfg, mode[:2], u)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        codes, scales = hgo.quantize_tables(table, cfg, mode[:2], u)
+    for scale in (1.0, 3.0):
+        table.mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_quantized_equal((codes, scales), _plain_quantize(table, cfg, mode[:2], u))
+
+
+def test_quantizer_clusters_can_be_scheduled(dev):
+    """``cudaOccupancyMaxActiveClusters`` is above 0 for every plan of the
+    gate grid (32 clusters of 8 blocks of 512 threads) and the flagship's,
+    in every mode, and the launch floor's empty kernel runs in that shape."""
+    for grid in ("gate 32 x 2^16", "pos", "surface"):
+        cfg = _quantize_case(grid, 76, dev)[0]
+        for cluster in kp.QUANTIZE_CLUSTERS:
+            plan = kp.quantize_plan(cfg, cluster)
+            for mode, noise in (("q8", False), ("q8", True), ("f8", False)):
+                assert hgo.quantize_max_active_clusters(
+                    plan, mode, noise, torch.cuda.current_device()) > 0
+    gate = kp.quantize_plan(_quantize_case("gate 32 x 2^16", 76, dev)[0])
+    assert (gate.blocks, gate.cluster, gate.threads) == (256, 8, 512)
+    hgo.quantize_launch_floor(gate, dev)
+    torch.cuda.synchronize()
 
 
 def test_prepare_table_takes_the_quantizer_kernel_or_raises(dev, monkeypatch):

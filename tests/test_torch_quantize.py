@@ -1,13 +1,13 @@
 """Kernel K1p (``csrc/quantize.cu``, the q8/f8 table preparation) on the CPU:
-its block geometry (``ops/kernel_plan.py::quantize_plan``), a numpy
-emulation of its two launches held exactly to the JAX package's quantizers
-and to the plain version, and the wrapper's CPU path. The kernel itself is
+its launch geometry (``ops/kernel_plan.py::quantize_plan``), a numpy
+emulation of its single clustered launch held exactly to the JAX package's
+quantizers and to the plain version, and the wrapper's CPU path. The kernel itself is
 held to the plain version on the card (``tests/test_torch_cuda.py``).
 
 Inputs come from numpy with fixed seeds and go through both packages.
 """
 
-import bisect
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -34,9 +34,9 @@ GRIDS = {
     "2^14 pos": (dict(FLAGSHIP, log2_hashmap_size=14), 3),
     "gate 32 x 2^16": (dict(FLAGSHIP, n_levels=32, log2_hashmap_size=16), 3),
 }
-# a single block (every level in one range), 7 (ranges that straddle
-# levels) and the plan's own count (132 or more at these grids)
-BLOCKS = {"1 block": 1, "7 blocks": 7, "plan": kp.QUANTIZE_MAX_BLOCKS}
+# clusters of 1 block (a level in one block), 2 and the plan's 8: the result
+# does not depend on how a level is cut
+CLUSTERS = {"cluster 1": 1, "cluster 2": 2, "plan": kp.QUANTIZE_CLUSTER}
 
 
 def _cfgs(name, mode):
@@ -75,53 +75,35 @@ def _codes(t: np.ndarray, s: np.float32, u: np.ndarray | None, mode: str) -> np.
 
 def emulate(table: np.ndarray, noise: np.ndarray | None, cfg, mode: str,
             plan: kp.QuantizePlan) -> tuple[np.ndarray, np.ndarray]:
-    """The two launches of ``csrc/quantize.cu`` in numpy, block by block, in
-    ``plan``'s flat row ranges: (codes as uint8 (T, 2), scales (L,)).
+    """The single launch of ``csrc/quantize.cu`` in numpy, cluster by
+    cluster and block by block: (codes as uint8 (T, 2), scales (L,)).
 
-    1. reduce: block b writes ``partials[b, l]``, the largest |t| of the
-       rows of level l in its range as the float's bits, for each level its
-       range touches, and nothing else (-1 marks an entry never written).
-    2. codes: block b takes, for each level its range touches, the maximum
-       over ``plan.level_blocks`` of that level's partials (each must have
-       been written), the scale from it (stored by the level's first
-       block, which must be the only one), then its rows' codes, each with
-       the scale of its own level from the block's table of scales."""
-    offs = list(cfg.level_offsets) + [cfg.total_params]
+    Block r of cluster l takes ``plan.slice(l, r)``, which must lie inside
+    level l, and puts the largest |t| of its slice as the float's bits into
+    its shared word (+0 for an empty slice). Every block of the cluster then
+    reads the cluster's ``plan.cluster`` words, takes their maximum and the
+    scale from it; rank 0 alone stores the scale. Each block writes the
+    codes of its own slice with the scale it computed."""
+    offs, sizes = cfg.level_offsets, cfg.level_sizes
     bits = (table.view(np.uint32) & np.uint32(0x7FFFFFFF)).max(axis=1)  # of a row
-
-    def level_of(row):
-        return min(bisect.bisect_right(offs, row) - 1, cfg.n_levels - 1)
-
-    def touched(b):
-        r0, r1 = plan.block_span(b)
-        return range(level_of(r0), level_of(r1 - 1) + 1)
-
-    partials = np.full(plan.partials_shape, -1, np.int64)
-    for b in range(plan.blocks):
-        r0, r1 = plan.block_span(b)
-        for lv in touched(b):
-            lo, hi = max(r0, offs[lv]), min(r1, offs[lv + 1])
-            partials[b, lv] = int(bits[lo:hi].max())
-
     codes = np.zeros(table.shape, np.uint8)
     scales = np.full(cfg.n_levels, np.nan, np.float32)
     stored = np.zeros(cfg.n_levels, np.int64)
-    for b in range(plan.blocks):
-        r0, r1 = plan.block_span(b)
-        scale = {}
-        for lv in touched(b):
-            blocks = plan.level_blocks(offs[lv], offs[lv + 1] - offs[lv])
-            parts = partials[blocks.start:blocks.stop, lv]
-            assert (parts >= 0).all(), (b, lv)  # every entry read was written
-            scale[lv] = _level_scale(np.uint32(parts.max()).view(np.float32), mode)
-            if blocks.start == b:
-                scales[lv] = scale[lv]
+    written = np.zeros(table.shape[0], np.int64)
+    for lv in range(cfg.n_levels):
+        spans = [plan.slice(lv, r) for r in range(plan.cluster)]
+        assert all(offs[lv] <= r0 <= r1 <= offs[lv] + sizes[lv] for r0, r1 in spans)
+        shared = [int(bits[r0:r1].max()) if r1 > r0 else 0 for r0, r1 in spans]
+        for rank, (r0, r1) in enumerate(spans):
+            scale = _level_scale(np.uint32(max(shared)).view(np.float32), mode)
+            if rank == 0:
+                scales[lv] = scale
                 stored[lv] += 1
-        for lv in touched(b):
-            lo, hi = max(r0, offs[lv]), min(r1, offs[lv + 1])
-            u = None if noise is None else noise[lo:hi]
-            codes[lo:hi] = _codes(table[lo:hi], scale[lv], u, mode)
+            u = None if noise is None else noise[r0:r1]
+            codes[r0:r1] = _codes(table[r0:r1], scale, u, mode)
+            written[r0:r1] += 1
     assert (stored == 1).all()  # each level's scale stored by exactly one block
+    assert (written == 1).all()  # each row's codes written by exactly one block
     return codes, scales
 
 
@@ -139,17 +121,17 @@ def _jax_q8(name, noise):
     return np.concatenate(codes), np.asarray(scales, np.float32)
 
 
-@pytest.mark.parametrize("blocks", BLOCKS.values(), ids=BLOCKS)
+@pytest.mark.parametrize("cluster", CLUSTERS.values(), ids=CLUSTERS)
 @pytest.mark.parametrize("noise", [False, True], ids=["round", "noise"])
 @pytest.mark.parametrize("name", GRIDS)
-def test_emulation_matches_jax_q8(name, noise, blocks):
-    """The kernel's reduction and quantization, emulated in its blocks,
+def test_emulation_matches_jax_q8(name, noise, cluster):
+    """The kernel's reduction and quantization, emulated in its clusters,
     equal JAX's ``quantize_level_q8`` on every level (codes and scales) and
     the plain version, exactly."""
     _, tc = _cfgs(name, "q8")
     table, u = _inputs(name)
-    plan = kp.quantize_plan(tc, blocks)
-    assert (plan.blocks == 1) if blocks == 1 else (plan.blocks >= min(blocks, 132))
+    plan = kp.quantize_plan(tc, cluster)
+    assert plan.blocks == tc.n_levels * cluster
     codes, scales = emulate(table, u if noise else None, tc, "q8", plan)
     jq, js = _jax_q8(name, noise)
     np.testing.assert_array_equal(codes.view(np.int8), jq)
@@ -161,9 +143,9 @@ def test_emulation_matches_jax_q8(name, noise, blocks):
     np.testing.assert_array_equal(scales, ps.numpy())
 
 
-@pytest.mark.parametrize("blocks", BLOCKS.values(), ids=BLOCKS)
+@pytest.mark.parametrize("cluster", CLUSTERS.values(), ids=CLUSTERS)
 @pytest.mark.parametrize("name", GRIDS)
-def test_emulation_matches_jax_f8(name, blocks):
+def test_emulation_matches_jax_f8(name, cluster):
     """The same for f8: bit-equal to ``quantize_level_f8``'s formula
     evaluated exactly (``_f8_oracle``), to jnp's division and cast given the
     scale, and to the plain version; ``quantize_level_f8``'s own scale is
@@ -171,7 +153,7 @@ def test_emulation_matches_jax_f8(name, blocks):
     within ``_XLA_EXP2_RTOL`` (as ``test_f8_quantizer_matches_jax``)."""
     jc, tc = _cfgs(name, "f8")
     table, _ = _inputs(name)
-    codes, scales = emulate(table, None, tc, "f8", kp.quantize_plan(tc, blocks))
+    codes, scales = emulate(table, None, tc, "f8", kp.quantize_plan(tc, cluster))
     oq, os_ = _f8_oracle(table, jc)
     np.testing.assert_array_equal(codes, oq.view(np.uint8))
     np.testing.assert_array_equal(scales, os_)
@@ -215,13 +197,13 @@ def _edge_table(tc):
 
 @pytest.mark.parametrize("mode", ["q8", "q8 noise", "f8"])
 def test_emulation_edge_cases(mode):
-    """The crafted levels of ``_edge_table``, emulated in 7 blocks: equal to
+    """The crafted levels of ``_edge_table``, emulated in clusters of 2: equal to
     JAX (q8: ``quantize_level_q8``; f8: its formula) and to the plain
     version, with the values each edge case implies."""
     jc, tc = _cfgs("flagship pos", mode[:2])
     table, noise, at = _edge_table(tc)
     u = noise if mode == "q8 noise" else None
-    codes, scales = emulate(table, u, tc, mode[:2], kp.quantize_plan(tc, 7))
+    codes, scales = emulate(table, u, tc, mode[:2], kp.quantize_plan(tc, 2))
     off = tc.level_offsets
     with one_torch_thread():
         t = torch.from_numpy(table)
@@ -255,37 +237,58 @@ def test_emulation_edge_cases(mode):
 
 
 @pytest.mark.parametrize("name", GRIDS)
-@pytest.mark.parametrize("blocks", [1, 7, 132, kp.QUANTIZE_MAX_BLOCKS])
-def test_quantize_plan_covers_every_row_once(name, blocks):
-    """The plan's ranges tile the table in whole 8-row units, no block is
-    empty, and ``level_blocks`` names exactly the blocks whose ranges hold
-    rows of each level."""
+@pytest.mark.parametrize("cluster", kp.QUANTIZE_CLUSTERS)
+def test_quantize_plan_covers_every_row_once(name, cluster):
+    """The plan's slices tile each level in whole 8-row units, in order, none
+    crosses a level, and each level is the one cluster of its index: the
+    launch's blocks cover every row of the table once."""
     _, tc = _cfgs(name, "q8")
-    plan = kp.quantize_plan(tc, blocks)
-    assert plan.block_rows % 8 == 0 and 1 <= plan.blocks <= blocks
-    assert plan.partials_shape == (plan.blocks, tc.n_levels)
-    spans = [plan.block_span(b) for b in range(plan.blocks)]
-    assert spans[0][0] == 0 and spans[-1][1] == tc.total_params
-    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-    assert all(r1 > r0 for r0, r1 in spans)
-    for off, size in zip(tc.level_offsets, tc.level_sizes):
-        want = [b for b, (r0, r1) in enumerate(spans) if r0 < off + size and off < r1]
-        assert list(plan.level_blocks(off, size)) == want
-    if blocks == kp.QUANTIZE_MAX_BLOCKS:
-        assert plan.blocks >= 132
+    plan = kp.quantize_plan(tc, cluster)
+    assert (plan.cluster, plan.blocks) == (cluster, tc.n_levels * cluster)
+    covered = np.zeros(tc.total_params, np.int64)
+    for lv, (off, size) in enumerate(zip(tc.level_offsets, tc.level_sizes)):
+        assert plan.slice_rows[lv] % 8 == 0
+        spans = [plan.slice(lv, r) for r in range(cluster)]
+        assert spans[0][0] == off and spans[-1][1] == off + size
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        for r0, r1 in spans:
+            assert off <= r0 <= r1 <= off + size and r0 % 8 == 0 and r1 % 8 == 0
+            covered[r0:r1] += 1
+    assert (covered == 1).all()
+    assert plan.threads in (256, 512)
+    if plan.rounds == 1:  # a thread keeps its slice's float4s in registers
+        assert max(plan.slice_rows) <= 2 * plan.threads * kp.QUANTIZE_VECS
 
 
 def test_quantize_plan_at_the_flagship():
-    """248 blocks of 512 rows for the 3-D table (one float4 a thread), 187 for
-    the 2-D one."""
-    for name, blocks in (("flagship pos", 248), ("flagship surface", 187)):
+    """16 clusters of 8 blocks of 256 threads at both flagship tables, 512
+    threads at the gate grid's 2^16-row levels (8,192 rows a block), every
+    thread's float4s in registers at all four grids; clusters outside {1, 2,
+    4, 8} and grids of more than 32 levels raise."""
+    for name in ("flagship pos", "flagship surface"):
         plan = kp.quantize_plan(_cfgs(name, "q8")[1])
-        assert (plan.blocks, plan.block_rows) == (blocks, 512), name
-    assert "248 blocks of 256 threads" in kp.quantize_plan(_cfgs("flagship pos", "q8")[1]).describe()
-    with pytest.raises(ValueError):
-        kp.quantize_plan(_cfgs("flagship pos", "q8")[1], 0)
+        assert (plan.blocks, plan.cluster, plan.threads, plan.rounds) == (128, 8, 256, 1), name
+        assert plan.describe().startswith("16 clusters of 8 blocks of 256 threads"), name
+    gate = kp.quantize_plan(_cfgs("gate 32 x 2^16", "q8")[1])
+    assert (gate.blocks, gate.threads, max(gate.slice_rows), gate.rounds) == (256, 512, 8192, 1)
+    assert kp.quantize_plan(_cfgs("2^14 pos", "q8")[1]).rounds == 1
+    for cluster in (0, 3, 16):
+        with pytest.raises(ValueError):
+            kp.quantize_plan(_cfgs("flagship pos", "q8")[1], cluster)
     with pytest.raises(ValueError):
         kp.quantize_plan(thg.HashGridConfig.from_options(dict(FLAGSHIP, n_levels=33), 3))
+    with pytest.raises(ValueError, match="multiples of 8"):  # a level of 12 rows
+        kp.quantize_plan(_Levels(2, (12, 8), (0, 12), 20))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Levels:
+    """The fields of a grid config that ``quantize_plan`` reads."""
+
+    n_levels: int
+    level_sizes: tuple
+    level_offsets: tuple
+    total_params: int
 
 
 @pytest.mark.parametrize("mode", ["q8", "f8"])
