@@ -19,6 +19,7 @@ import torch
 from atmonr_tpu_torch import native
 from atmonr_tpu_torch.data.granule import GranuleArrays, get_indexes, parse_field
 from atmonr_tpu_torch.geo import wgs84
+from atmonr_tpu_torch.utils import spans
 from atmonr_tpu_torch.utils.device import resolve_device
 
 RAY_CHUNK = int(1e4)
@@ -145,39 +146,41 @@ class HARP2Dataset:
         device: str | torch.device | None = None,
         ray_builder: Callable | None = None,
     ) -> None:
-        self.device = resolve_device(device)
-        self.config = dict(config)
-        self.config.setdefault("max_abs_view_angle", 90.0)
-        self.config.setdefault("rgb_mode", "nadir")  # nerf.json omits it
-        self.granule = granule
+        with spans.span("dataset.build", cpu=True) as build:
+            self.device = resolve_device(device)
+            self.config = dict(config)
+            self.config.setdefault("max_abs_view_angle", 90.0)
+            self.config.setdefault("rgb_mode", "nadir")  # nerf.json omits it
+            self.granule = granule
 
-        self.view_idx, self.irgb_idx = get_indexes(
-            granule,
-            self.config["max_abs_view_angle"],
-            self.config.get("bands_to_keep"),
-        )
-        level = granule.level
-        self.img_shp = (
-            granule.i.shape[1:] if level == "L1B" else granule.i.shape[:2]
-        )
+            self.view_idx, self.irgb_idx = get_indexes(
+                granule,
+                self.config["max_abs_view_angle"],
+                self.config.get("bands_to_keep"),
+            )
+            level = granule.level
+            self.img_shp = (
+                granule.i.shape[1:] if level == "L1B" else granule.i.shape[:2]
+            )
 
-        pf = lambda a: parse_field(a, level, self.view_idx)  # noqa: E731
-        self.lat = pf(granule.lat)
-        self.lon = pf(granule.lon)
-        self.alt = pf(granule.alt)
-        self.thetav = pf(granule.thetav)
-        self.phiv = pf(granule.phiv)
-        self.int_arr = pf(granule.i)
-        self.max_i = float(np.nanmax(self.int_arr))
+            pf = lambda a: parse_field(a, level, self.view_idx)  # noqa: E731
+            self.lat = pf(granule.lat)
+            self.lon = pf(granule.lon)
+            self.alt = pf(granule.alt)
+            self.thetav = pf(granule.thetav)
+            self.phiv = pf(granule.phiv)
+            self.int_arr = pf(granule.i)
+            self.max_i = float(np.nanmax(self.int_arr))
 
-        self.best_rgb_idx = select_rgb_views(
-            granule.view_angles[self.view_idx],
-            (~np.isnan(self.int_arr)).sum(axis=0),
-            self.irgb_idx,
-            penalize_striping=level == "L1B",
-            mode=self.config["rgb_mode"],
-        )
-        self._init_ray_data(RAY_CHUNK, ray_builder or native.build_rays)
+            self.best_rgb_idx = select_rgb_views(
+                granule.view_angles[self.view_idx],
+                (~np.isnan(self.int_arr)).sum(axis=0),
+                self.irgb_idx,
+                penalize_striping=level == "L1B",
+                mode=self.config["rgb_mode"],
+            )
+            self._init_ray_data(RAY_CHUNK, ray_builder or native.build_rays)
+            build.count = self.num_rays
         self._device_rays: dict[str, torch.Tensor] | None = None
 
     def _init_ray_data(self, chunk_size: int, ray_builder: Callable) -> None:

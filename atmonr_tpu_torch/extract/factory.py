@@ -10,6 +10,7 @@ from atmonr_tpu_torch.extract.datasets import (
     HARP2L1CExtractDataset,
     HARP2VoxelGridExtractDataset,
 )
+from atmonr_tpu_torch.utils import spans
 
 EXTRACT_DATASETS = {
     "HARP2": {
@@ -31,4 +32,7 @@ def get_extract_dataset(mode: str, dataset: HARP2Dataset, **kwargs) -> HARP2Extr
             f"No extract dataset registered under {data_type!r}; "
             f"known types: {sorted(EXTRACT_DATASETS)}"
         )
-    return EXTRACT_DATASETS[data_type][mode.lower()](dataset, **kwargs)
+    with spans.span("extract.grid", cpu=True) as build:
+        grid = EXTRACT_DATASETS[data_type][mode.lower()](dataset, **kwargs)
+        build.count = len(grid)
+    return grid

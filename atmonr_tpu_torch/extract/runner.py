@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from atmonr_tpu_torch.utils import spans
+
 
 @torch.no_grad()
 def run_extraction(
@@ -35,10 +37,20 @@ def run_extraction(
     the end gives every rank the whole sigma. The points are independent,
     so with one rank the values equal the unsharded query's.
     """
-    scale = pipeline.scale
-    offset = np.asarray(pipeline.offset, np.float64)
-    xyz = np.asarray(getattr(points, "xyz", points), np.float64)
-    n = xyz.shape[0]
+    with spans.span("extract.query", cpu=True) as query:
+        sigma = _query(pipeline, points, batch_size, verbose, mesh)
+        query.count = len(sigma)
+    return sigma
+
+
+def _query(pipeline, points, batch_size: int, verbose: bool, mesh) -> np.ndarray:
+    """The body of ``run_extraction``."""
+    with spans.span("extract.normalize"):
+        scale = pipeline.scale
+        offset = np.asarray(pipeline.offset, np.float64)
+        xyz = np.asarray(getattr(points, "xyz", points), np.float64)
+        n = xyz.shape[0]
+        pts_all = torch.from_numpy(((xyz - offset[None]) / scale).astype(np.float32))
     n_ranks, rank = 1, 0
     if mesh is not None:
         n_ranks = mesh.mesh.numel()
@@ -46,27 +58,29 @@ def run_extraction(
         rank = coord[0] * mesh.mesh.shape[1] + coord[1]
         batch_size = max(batch_size - batch_size % n_ranks, n_ranks)
     nb = -(-n // batch_size)
-    pts_all = torch.from_numpy(((xyz - offset[None]) / scale).astype(np.float32))
-    pts_all = pts_all.to(pipeline.device)
+    with spans.span("extract.to_device", cpu=True):
+        pts_all = pts_all.to(pipeline.device)
 
     out, shares = [], []
     for i in range(nb):
-        batch = pts_all[i * batch_size : (i + 1) * batch_size]
-        if mesh is not None:
-            m = -(-batch.shape[0] // n_ranks)
-            shares.append(m)
-            batch = batch[rank * m : (rank + 1) * m]
-            if batch.shape[0] < m:  # the tail's last ranks: pad with the origin
-                batch = torch.cat([batch, batch.new_zeros((m - batch.shape[0], 3))])
-        out.append(pipeline.extract(batch) / scale)
+        with spans.span("extract.batch", count=min(batch_size, n - i * batch_size)):
+            batch = pts_all[i * batch_size : (i + 1) * batch_size]
+            if mesh is not None:
+                m = -(-batch.shape[0] // n_ranks)
+                shares.append(m)
+                batch = batch[rank * m : (rank + 1) * m]
+                if batch.shape[0] < m:  # the tail's last ranks: pad with the origin
+                    batch = torch.cat([batch, batch.new_zeros((m - batch.shape[0], 3))])
+            out.append(pipeline.extract(batch) / scale)
         if verbose:
             print(f"extract batch {i + 1}/{nb}", end="\r")
     if verbose:
         print()
-    sigma = torch.cat(out, dim=0)
-    if mesh is not None:
-        sigma = _gather_shares(sigma, shares, mesh)[:n]
-    return sigma.cpu().numpy()
+    with spans.span("extract.to_host", cpu=True):
+        sigma = torch.cat(out, dim=0)
+        if mesh is not None:
+            sigma = _gather_shares(sigma, shares, mesh)[:n]
+        return sigma.cpu().numpy()
 
 
 def _gather_shares(local: torch.Tensor, shares: list[int], mesh) -> torch.Tensor:

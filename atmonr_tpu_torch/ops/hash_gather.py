@@ -49,6 +49,7 @@ from atmonr_tpu_torch.ops.kernel_plan import (
     level_plan,
     quantize_plan,
 )
+from atmonr_tpu_torch.utils import spans
 
 TABLE_DTYPES = {
     "bf16": torch.bfloat16,
@@ -366,15 +367,17 @@ class _HashEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, x, noise, cfg, mode):
-        ctx.save_for_backward(x)
-        ctx.cfg = cfg
-        prepared, scales = prepare_table(table, cfg, mode, noise)
-        return hash_gather(prepared, scales, x, cfg)
+        with spans.span("hash_encode.fwd", count=len(x)):
+            ctx.save_for_backward(x)
+            ctx.cfg = cfg
+            prepared, scales = prepare_table(table, cfg, mode, noise)
+            return hash_gather(prepared, scales, x, cfg)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return hash_bwd(x, g.to(torch.float32), ctx.cfg), None, None, None, None
+        with spans.span("hash_encode.bwd", count=len(x)):
+            return hash_bwd(x, g.to(torch.float32), ctx.cfg), None, None, None, None
 
 
 def hash_encode_kernel(

@@ -60,6 +60,7 @@ from atmonr_tpu_torch.ops.samplers import (
 from atmonr_tpu_torch.pipelines.base import Pipeline
 from atmonr_tpu_torch.training.optim import ClippedAdamW
 from atmonr_tpu_torch.training.schedules import apply_warmup
+from atmonr_tpu_torch.utils import spans
 
 _POS_MLP_OUT = 16  # intermediate width of the density MLP
 
@@ -188,19 +189,20 @@ class InstantNGPPipeline(Pipeline):
         oc = self.occ_cfg
         if oc is None:
             return
-        if generator is not None:
-            if jitter is not None:
-                raise ValueError("pass a generator or jitter, not both")
-            jitter = _uniform((oc.num_cells, 3), generator, self.device)
-        u = occupancy.cell_points(oc, self.device, jitter)
-        hash_in = torch.cat(
-            [u[:, :2], u[:, 2:] / self.config["alt_compress_factor"]], dim=-1
-        )
-        pos_out = self._pos_branch(hash_in)
-        sigma = self.density_act(
-            torch.amax(pos_out[:, : self.num_density_outputs], dim=-1)
-        )
-        self.occ.copy_(occupancy.update_grid(self.occ, sigma, oc))
+        with spans.span("occupancy.refresh", count=oc.num_cells):
+            if generator is not None:
+                if jitter is not None:
+                    raise ValueError("pass a generator or jitter, not both")
+                jitter = _uniform((oc.num_cells, 3), generator, self.device)
+            u = occupancy.cell_points(oc, self.device, jitter)
+            hash_in = torch.cat(
+                [u[:, :2], u[:, 2:] / self.config["alt_compress_factor"]], dim=-1
+            )
+            pos_out = self._pos_branch(hash_in)
+            sigma = self.density_act(
+                torch.amax(pos_out[:, : self.num_density_outputs], dim=-1)
+            )
+            self.occ.copy_(occupancy.update_grid(self.occ, sigma, oc))
 
     # -- forward -------------------------------------------------------------
 
@@ -292,7 +294,8 @@ class InstantNGPPipeline(Pipeline):
         the position hash encoder and the (B, n) depths. They depend on the rays,
         the draws and the occupancy grid (or, with the importance sampler,
         the density branch), and carry no gradient."""
-        pts, z_vals, _ = self._sample(ray_batch, draws or {}, use_grid)
+        with spans.span("pipeline.sample", count=len(ray_batch["origin"])):
+            pts, z_vals, _ = self._sample(ray_batch, draws or {}, use_grid)
         return torch.reshape(self._encoder_inputs(pts), (-1, self.num_inputs)), z_vals
 
     def forward(
@@ -345,9 +348,10 @@ class InstantNGPPipeline(Pipeline):
         color_surf = torch.relu(color_surf)
         sigma = self.density_act(sigma)
 
-        color_map, _, weights, color_map_atmo, color_map_surf = render_with_surface(
-            z_vals * (self.scale / 1000.0), color, sigma, color_surf
-        )
+        with spans.span("pipeline.render", count=b):
+            color_map, _, weights, color_map_atmo, color_map_surf = render_with_surface(
+                z_vals * (self.scale / 1000.0), color, sigma, color_surf
+            )
         return {
             "color_fine": color[:, :-1],
             "color_surf": color_surf,

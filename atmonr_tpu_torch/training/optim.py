@@ -20,6 +20,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from atmonr_tpu_torch.utils import spans
+
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of all squared elements, as a 0-d tensor."""
@@ -80,14 +82,15 @@ class ClippedAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if self.max_norm is not None and grads:
-            clip_by_global_norm_(grads, self.max_norm)
-        lr = float(self.lr_schedule(self.count))
-        for group in self.adamw.param_groups:
-            group["lr"] = lr
-        self.adamw.step()
-        self.count += 1
+        with spans.span("optim.step"):
+            grads = [p.grad for p in self.params if p.grad is not None]
+            if self.max_norm is not None and grads:
+                clip_by_global_norm_(grads, self.max_norm)
+            lr = float(self.lr_schedule(self.count))
+            for group in self.adamw.param_groups:
+                group["lr"] = lr
+            self.adamw.step()
+            self.count += 1
 
     def state_dict(self) -> dict[str, Any]:
         return {"count": self.count, "adamw": self.adamw.state_dict()}

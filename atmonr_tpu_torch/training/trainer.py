@@ -34,6 +34,7 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import signal
 import warnings
@@ -49,6 +50,7 @@ from atmonr_tpu_torch.parallel import mesh as pmesh
 from atmonr_tpu_torch.training import checkpoint as ckpt
 from atmonr_tpu_torch.training.metrics import image_metrics
 from atmonr_tpu_torch.training.schedules import make_lr_schedule
+from atmonr_tpu_torch.utils import spans
 from atmonr_tpu_torch.utils.device import resolve_device
 
 # the color maps whose prediction in each ray's own band the step keeps
@@ -417,8 +419,14 @@ class Trainer:
         ``draws`` (one dict of ``make_draws``, or one per micro-batch) and
         ``aux_jitter`` replace the Trainer's own random streams; by default
         they come from the ``draws`` and ``aux`` generators."""
+        with spans.span("trainer.step", count=len(idx), step=self.iter_count + 1):
+            return self._step(idx, draws, aux_jitter)
+
+    def _step(self, idx, draws, aux_jitter) -> torch.Tensor:
+        """The body of ``step``, inside its span."""
         pipe = self.pipeline
-        batch = batching.gather_batch(self.rays, idx)
+        with spans.span("trainer.batch"):
+            batch = batching.gather_batch(self.rays, idx)
         n_data = self.axes.data.size if self.axes is not None else 1
         micro = self.micro_batch // n_data if self.micro_batch else self.rank_batch
         n_micro = idx.shape[0] // micro if self.micro_batch else 1
@@ -437,17 +445,22 @@ class Trainer:
             )
             mdraws = draws[i]
             if mdraws is None:
-                mdraws = self._make_draws(mbatch["idx"].shape[0])
-            results = self._forward(mbatch, mdraws)
+                with spans.span("trainer.batch"):
+                    mdraws = self._make_draws(mbatch["idx"].shape[0])
+            with spans.span("pipeline.forward"):
+                results = self._forward(mbatch, mdraws)
             # this rank's share of the mean over the micro-batches and the
             # data indices; the shares' gradients accumulate in .grad
-            loss = pipe.compute_loss(mbatch, results)
-            if n_data > 1:
-                loss = loss / n_data
-            (loss / n_micro).backward()
+            with spans.span("pipeline.loss"):
+                loss = pipe.compute_loss(mbatch, results)
+                if n_data > 1:
+                    loss = loss / n_data
+            with spans.span("trainer.backward"):
+                (loss / n_micro).backward()
             losses.append(loss.detach())
             if self.progress:
-                self._scatter_progress(mbatch, results)
+                with spans.span("trainer.progress"):
+                    self._scatter_progress(mbatch, results)
         loss = losses[0] if n_micro == 1 else torch.mean(torch.stack(losses))
         if self.mesh is not None:
             from atmonr_tpu_torch.parallel.train import reduce_gradients
@@ -551,6 +564,7 @@ class Trainer:
         # loss logging lags one print block, so no step waits on a fetch
         prev_block: tuple[int, _LaggedScalar] | None = None
         self._last_len = 0
+        profiling = contextlib.ExitStack()
         prof = None
         if profile:
             from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -558,61 +572,63 @@ class Trainer:
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            prof = torch_profile(activities=activities)
-            prof.start()
+            prof = profiling.enter_context(torch_profile(activities=activities))
+            # the steps' spans, as ranges over their kernels in the trace
+            profiling.enter_context(spans.recording())
         rop = self.restart_on_plateau
 
-        while self.iter_count < self.num_iters:
-            # this rank's rows (all rows without a mesh), permuted
-            perm = batching.epoch_permutation(
-                self.generators["perm"], self.rank_rays, self.rank_batch
-            )
-            for i in range(self.steps_per_epoch):
-                loss = self.step(perm[i * self.rank_batch : (i + 1) * self.rank_batch])
-                # exactly the last print_frequency losses, so each block
-                # mean averages its own block only
-                running = (running + [loss])[-self.print_frequency :]
-                if (
-                    rop is not None
-                    and self._restarts < rop["max_restarts"]
-                    and self.iter_count - self._restart_base == rop["check_iter"]
-                ):
-                    recent = float(torch.mean(torch.stack(running[-5:])))
-                    if recent > rop["loss_threshold"]:
-                        self._reinit_for_restart(recent)
-                        self._restart_base = self.iter_count
-                    else:
-                        # a healthy run stays healthy (the collapse is an
-                        # init phenomenon); stop checking
-                        self._restarts = rop["max_restarts"]
-                yield self.iter_count
-                if self.iter_count % self.print_frequency == 0:
-                    if prev_block is not None:
-                        self._log_loss_block(*prev_block)
-                    prev_block = (
-                        self.iter_count,
-                        _LaggedScalar(torch.mean(torch.stack(running))),
-                    )
-                if self.iter_count >= self.num_iters or self._preempted:
-                    break
-
-            if prev_block is not None:  # the epoch's end syncs anyway; flush
-                self._log_loss_block(*prev_block)
-                prev_block = None
-            self.epoch_idx += 1
-            self._end_of_epoch(self._last_len)
-            self._last_len = 0
-            self.save(output_path, self.epoch_idx)
-            if prof is not None:
-                prof.stop()
-                prof.export_chrome_trace(str(self.tensorboard_dir / "trace.json"))
-                prof = None
-            if self._preempted:
-                self._print(
-                    f"\npreempted: checkpoint epoch {self.epoch_idx} saved, "
-                    "resume with --resume"
+        with profiling:  # a loop left early stops the profiler too
+            while self.iter_count < self.num_iters:
+                # this rank's rows (all rows without a mesh), permuted
+                perm = batching.epoch_permutation(
+                    self.generators["perm"], self.rank_rays, self.rank_batch
                 )
-                break
+                for i in range(self.steps_per_epoch):
+                    loss = self.step(perm[i * self.rank_batch : (i + 1) * self.rank_batch])
+                    # exactly the last print_frequency losses, so each block
+                    # mean averages its own block only
+                    running = (running + [loss])[-self.print_frequency :]
+                    if (
+                        rop is not None
+                        and self._restarts < rop["max_restarts"]
+                        and self.iter_count - self._restart_base == rop["check_iter"]
+                    ):
+                        recent = float(torch.mean(torch.stack(running[-5:])))
+                        if recent > rop["loss_threshold"]:
+                            self._reinit_for_restart(recent)
+                            self._restart_base = self.iter_count
+                        else:
+                            # a healthy run stays healthy (the collapse is an
+                            # init phenomenon); stop checking
+                            self._restarts = rop["max_restarts"]
+                    yield self.iter_count
+                    if self.iter_count % self.print_frequency == 0:
+                        if prev_block is not None:
+                            self._log_loss_block(*prev_block)
+                        prev_block = (
+                            self.iter_count,
+                            _LaggedScalar(torch.mean(torch.stack(running))),
+                        )
+                    if self.iter_count >= self.num_iters or self._preempted:
+                        break
+
+                if prev_block is not None:  # the epoch's end syncs anyway; flush
+                    self._log_loss_block(*prev_block)
+                    prev_block = None
+                self.epoch_idx += 1
+                self._end_of_epoch(self._last_len)
+                self._last_len = 0
+                self.save(output_path, self.epoch_idx)
+                if prof is not None:
+                    profiling.close()
+                    prof.export_chrome_trace(str(self.tensorboard_dir / "trace.json"))
+                    prof = None
+                if self._preempted:
+                    self._print(
+                        f"\npreempted: checkpoint epoch {self.epoch_idx} saved, "
+                        "resume with --resume"
+                    )
+                    break
         self._wait_checkpoint()  # the last epoch's save must have landed
         self.logger.flush()
         self._print()

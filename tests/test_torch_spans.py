@@ -1,0 +1,285 @@
+"""The span recorder (``atmonr_tpu_torch/utils/spans.py``) and the spans
+of the train step and the extraction, on the CPU: off, the shared no-op;
+on, nesting, parents and step ids across threads, ``record_function`` only
+under an active profiler, the summary; a small Instant-NGP Trainer's steps
+and ``run_extraction``'s batches with the recorder on and off; the spans in
+``Trainer.iterate(profile=True)``'s trace."""
+
+import json
+import threading
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from atmonr_tpu_torch import get_extract_dataset, run_extraction
+from atmonr_tpu_torch.utils import spans
+from test_torch_pipeline import N_RAYS
+from test_torch_train import _make_trainer
+
+STEPS = 4  # the small Trainer refreshes its occupancy grid every 2
+
+
+def _by_name(records) -> dict:
+    out = {}
+    for r in records:
+        out.setdefault(r.name, []).append(r)
+    return out
+
+
+def test_off_records_nothing_and_returns_the_shared_no_op():
+    a, b = spans.span("x", count=3), spans.span("y", step=1)
+    assert a is b
+    with a as s:
+        s.count = 5  # ignored
+    assert s.count is None
+    with spans.recording() as records:
+        pass
+    with spans.span("after"):
+        pass
+    assert records == []
+    assert spans.span("z") is a
+
+
+def test_recording_nests_spans_with_parents_and_step_ids():
+    with spans.recording() as records:
+        with spans.span("outside"):
+            pass
+        with spans.span("step", count=8, step=7, cpu=True) as st:
+            with spans.span("child") as child:
+                with spans.span("grandchild", count=2):
+                    pass
+                child.count = 4
+        with spans.span("after"):
+            pass
+    r = {x.name: x for x in records}
+    assert [x.name for x in records] == ["outside", "grandchild", "child", "step", "after"]
+    assert len({x.id for x in records}) == 5
+    assert r["outside"].parent is None and r["outside"].step is None
+    assert r["step"].parent is None and r["step"].step == 7 and r["step"].count == 8
+    assert r["child"].parent == st.id and r["child"].step == 7 and r["child"].count == 4
+    assert r["grandchild"].parent == child.id and r["grandchild"].step == 7
+    assert r["after"].parent is None and r["after"].step is None
+    me = threading.get_ident()
+    for x in records:
+        assert x.thread == me and x.start_ns <= x.end_ns
+        assert (x.cpu_ns is not None) == (x.name == "step")  # read where asked only
+    assert r["step"].cpu_ns >= 0
+    assert r["step"].start_ns <= r["child"].start_ns <= r["grandchild"].start_ns
+    assert r["grandchild"].end_ns <= r["child"].end_ns <= r["step"].end_ns
+
+
+def test_a_span_on_another_thread_takes_the_open_steps_innermost_span():
+    """As autograd's device thread does while the calling thread waits in
+    ``backward()``: its span's parent is the step thread's innermost open
+    span, and it takes that step's id. With no step open, it has none."""
+    def worker(name):
+        with spans.span(name):
+            with spans.span(name + ".inner"):
+                pass
+
+    with spans.recording() as records:
+        with spans.span("trainer.step", step=3):
+            with spans.span("trainer.backward") as bwd:
+                t = threading.Thread(target=worker, args=("hash_encode.bwd",))
+                t.start()
+                t.join(timeout=30)
+        t2 = threading.Thread(target=worker, args=("idle",))
+        t2.start()
+        t2.join(timeout=30)
+    assert not t.is_alive() and not t2.is_alive()
+    r = {x.name: x for x in records}
+    assert r["hash_encode.bwd"].parent == bwd.id and r["hash_encode.bwd"].step == 3
+    assert r["hash_encode.bwd"].thread != bwd.thread
+    assert r["hash_encode.bwd.inner"].parent == r["hash_encode.bwd"].id
+    assert r["hash_encode.bwd.inner"].step == 3
+    assert r["idle"].parent is None and r["idle"].step is None
+
+
+def test_record_function_only_while_recording_under_an_active_profiler(monkeypatch):
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with spans.recording():
+        with spans.span("no_profiler"):
+            pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("recorder_off"):
+            pass
+        with spans.recording():
+            with spans.span("both_on"):
+                torch.ones(4).sum()
+    assert entered == ["both_on"]
+    names = {e.name for e in prof.events()}
+    assert "both_on" in names and "recorder_off" not in names
+
+
+def test_recording_does_not_nest():
+    with spans.recording():
+        with pytest.raises(RuntimeError, match="already"):
+            with spans.recording():
+                pass
+    assert spans.span("x") is spans.span("y")
+
+
+def test_summary_self_time_off_cpu_and_counts():
+    """Self time is the wall less the union of the children's intervals
+    inside it (two children on two threads overlap); off-CPU is the wall
+    less the thread's CPU time, over the spans that read it."""
+    rec = lambda i, name, parent, s, e, cpu, count=None: SimpleNamespace(  # noqa: E731
+        id=i, name=name, parent=parent, start_ns=s, end_ns=e, cpu_ns=cpu, count=count)
+    records = [
+        rec(0, "step", None, 0, 100_000, 40_000, 8),
+        rec(1, "child", 0, 10_000, 40_000, 30_000, 3),
+        rec(2, "child", 0, 30_000, 60_000, 0, 5),
+        rec(3, "leaf", 2, 35_000, 45_000, None),
+        rec(4, "step", None, 200_000, 300_000, 100_000, 8),
+    ]
+    s = spans.summary(records)
+    assert s["step"]["calls"] == 2 and s["step"]["count"] == 16
+    assert s["step"]["wall_s"] == pytest.approx(200e-6)
+    assert s["step"]["self_s"] == pytest.approx((100_000 - 50_000 + 100_000) * 1e-9)
+    assert s["step"]["off_cpu_s"] == pytest.approx(60e-6)
+    assert s["child"]["calls"] == 2 and s["child"]["count"] == 8
+    assert s["child"]["self_s"] == pytest.approx(50e-6)
+    assert s["child"]["off_cpu_s"] == pytest.approx(30e-6)
+    assert s["leaf"]["count"] is None and s["leaf"]["self_s"] == pytest.approx(10e-6)
+    assert s["leaf"]["off_cpu_s"] is None
+
+
+def test_summary_of_recorded_spans_sees_a_wait_off_the_cpu():
+    with spans.recording() as records:
+        with spans.span("outer"):
+            with spans.span("wait", cpu=True):
+                time.sleep(0.03)
+    s = spans.summary(records)
+    assert s["wait"]["off_cpu_s"] >= 0.025
+    assert s["outer"]["wall_s"] >= s["wait"]["wall_s"]
+    assert s["outer"]["self_s"] == pytest.approx(s["outer"]["wall_s"] - s["wait"]["wall_s"])
+
+
+@pytest.fixture(scope="module")
+def steps(tmp_path_factory):
+    """Two Trainers of one seed, ``STEPS`` steps on the same rows: one
+    with the recorder on, one with it off."""
+    out = {}
+    idx = torch.from_numpy(np.random.default_rng(5).permutation(N_RAYS * 2)[:N_RAYS])
+    for on in (True, False):
+        tr = _make_trainer(tmp_path_factory.mktemp("spans"), name=f"on{on}")
+        losses = []
+        if on:
+            with spans.recording() as records:
+                for _ in range(STEPS):
+                    losses.append(tr.step(idx))
+            out["records"] = records
+        else:
+            for _ in range(STEPS):
+                losses.append(tr.step(idx))
+        out[on] = (tr, losses)
+    return out
+
+
+def test_each_step_has_one_of_each_phase(steps):
+    by = _by_name(steps["records"])
+    for name in ("trainer.step", "pipeline.forward", "pipeline.loss", "trainer.backward",
+                 "optim.step", "pipeline.sample", "pipeline.render", "trainer.progress"):
+        assert sorted(r.step for r in by[name]) == list(range(1, STEPS + 1)), name
+    # gather and draws
+    assert sorted(r.step for r in by["trainer.batch"]) == sorted(list(range(1, STEPS + 1)) * 2)
+    assert sorted(r.step for r in by["occupancy.refresh"]) == [2, 4]
+    assert all(r.count == N_RAYS for r in by["trainer.step"])
+    assert {r.step for r in by["hash_encode.fwd"]} == set(range(1, STEPS + 1))
+    assert {r.step for r in by["hash_encode.bwd"]} == set(range(1, STEPS + 1))
+    # no span of the step reads the thread's CPU clock (a system call)
+    assert all(r.cpu_ns is None for r in steps["records"])
+
+
+def test_step_spans_nest_inside_their_parents(steps):
+    records = steps["records"]
+    of = {r.id: r for r in records}
+    step_children = {"trainer.batch", "pipeline.forward", "pipeline.loss", "trainer.backward",
+                     "trainer.progress", "optim.step", "occupancy.refresh"}
+    for r in records:
+        if r.name == "trainer.step":
+            assert r.parent is None
+            continue
+        p = of[r.parent]
+        assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns, (r.name, p.name)
+        assert r.step == p.step
+        if r.name in step_children:
+            assert p.name == "trainer.step", r.name
+        if r.name in ("pipeline.sample", "pipeline.render"):
+            assert p.name == "pipeline.forward"
+        if r.name == "hash_encode.bwd":  # on the CPU, autograd runs on the calling thread
+            assert p.name == "trainer.backward"
+        if r.name == "hash_encode.fwd":
+            assert p.name in ("pipeline.forward", "occupancy.refresh")
+
+
+def test_losses_and_parameters_equal_with_the_recorder_on_and_off(steps):
+    (on, l_on), (off, l_off) = steps[True], steps[False]
+    assert [float(x) for x in l_on] == [float(x) for x in l_off]
+    for (n, a), (_, b) in zip(on.pipeline.named_parameters(), off.pipeline.named_parameters()):
+        assert torch.equal(a, b), n
+    assert torch.equal(on.pipeline.occ, off.pipeline.occ)
+
+
+def test_extraction_spans_cover_each_batch(tmp_path):
+    tr = _make_trainer(tmp_path)
+    with spans.recording() as records:
+        grid = get_extract_dataset("l1c", tr.dataset, alt_step=2000.0)
+        sigma = run_extraction(tr.pipeline, grid, batch_size=100)
+    n = len(grid)
+    assert n > 300 and n % 100
+    by = _by_name(records)
+    assert by["extract.grid"][0].count == n
+    (query,) = by["extract.query"]
+    assert query.count == n
+    batches = by["extract.batch"]
+    assert len(batches) == -(-n // 100)
+    assert sum(b.count for b in batches) == n
+    for name in ("extract.normalize", "extract.to_device", "extract.to_host"):
+        assert len(by[name]) == 1, name
+    # the few long spans read the CPU clock, the batches do not
+    for name in ("extract.grid", "extract.query", "extract.to_device", "extract.to_host"):
+        assert by[name][0].cpu_ns is not None, name
+    assert all(r.cpu_ns is None for r in by["extract.batch"] + by["extract.normalize"])
+    for r in records:
+        if r.name.startswith("extract.") and r.name not in ("extract.grid", "extract.query"):
+            assert r.parent == query.id, r.name
+    np.testing.assert_array_equal(sigma, run_extraction(tr.pipeline, grid, batch_size=100))
+
+
+def test_dataset_build_counts_the_rays(tmp_path):
+    with spans.recording() as records:
+        tr = _make_trainer(tmp_path)
+    (build,) = _by_name(records)["dataset.build"]
+    assert build.count == len(tr.dataset) > 0 and build.cpu_ns is not None
+
+
+def test_profiled_epoch_trace_carries_the_step_spans(tmp_path):
+    tr = _make_trainer(tmp_path, num_iters=4, batch_size=N_RAYS)
+    epoch = tr.steps_per_epoch
+    tr.num_iters = epoch + 1  # the profile covers the first epoch only
+    tr.train(tmp_path / "out", profile=True)
+    events = json.loads((tr.tensorboard_dir / "trace.json").read_text())["traceEvents"]
+    names = [e.get("name") for e in events if e.get("ph") == "X"]
+    assert names.count("trainer.step") == epoch
+    assert names.count("pipeline.forward") == epoch
+    assert spans.span("after") is spans.span("again")  # the recorder is off again
+
+
+def test_a_profiled_loop_left_early_turns_the_recorder_off(tmp_path):
+    tr = _make_trainer(tmp_path, num_iters=8, batch_size=N_RAYS)
+    for it in tr.iterate(tmp_path / "out", profile=True):
+        assert spans.span("a") is not spans.span("b")  # on while profiling
+        break
+    assert spans.span("a") is spans.span("b")
