@@ -37,6 +37,7 @@ from atmonr_tpu_torch.extract.writers import (
 )
 from atmonr_tpu_torch.geo import spherical as sph
 from atmonr_tpu_torch.geo import wgs84
+from atmonr_tpu_torch.utils import spans
 
 _CHUNK_SIZE = int(3e4)
 DEM_PATH = "data/ETOPO1_ocssw.nc"
@@ -80,15 +81,15 @@ class _HARP2LocalExtractDataset(HARP2ExtractDataset):
         self.sample_alt = np.arange(self.min_alt, self.max_alt + self.alt_step / 2, self.alt_step)
 
     def _grid_from_latlon(self, lat2d: np.ndarray, lon2d: np.ndarray) -> None:
-        """Expand a horizontal (H, W) lat/lon grid by the altitude ladder."""
-        na = self.sample_alt.shape[0]
-        self.lat = np.repeat(lat2d[:, :, None], na, axis=2)
-        self.lon = np.repeat(lon2d[:, :, None], na, axis=2)
-        alt = np.broadcast_to(self.sample_alt[None, None], self.lat.shape)
-        x, y, z = wgs84.horizontal_to_cartesian(
-            self.lat.astype(np.float64), self.lon.astype(np.float64), alt.astype(np.float64)
-        )
-        self.xyz = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+        """Expand a horizontal (H, W) lat/lon grid by the altitude ladder:
+        the geodesy once a pixel, broadcast over the ladder. ``lat`` and
+        ``lon`` are (H, W, na) read-only views of the 2-D grids."""
+        shape = lat2d.shape + self.sample_alt.shape
+        with spans.span("extract.grid.points", count=int(np.prod(shape))):
+            xyz = wgs84.horizontal_grid_to_cartesian(lat2d, lon2d, self.sample_alt)
+        self.lat = np.broadcast_to(lat2d[:, :, None], shape)
+        self.lon = np.broadcast_to(lon2d[:, :, None], shape)
+        self.xyz = xyz.reshape(-1, 3)
         self.idx = np.arange(self.xyz.shape[0], dtype=np.int32)
 
     def dump(self, output_filepath: Path, sigma: np.ndarray) -> None:

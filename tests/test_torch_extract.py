@@ -113,6 +113,30 @@ def test_pseudo_l1c_grid_matches_jax(datasets, alt):
     _same_grid(got, want, ("lat", "lon", "height", "sample_alt"))
 
 
+@pytest.mark.parametrize("alt", [(2000.0, None, None), (500.0, 1000.0, 6000.0)],
+                         ids=["ladder", "min-max"])
+def test_l1c_grid_points_and_views(datasets, alt):
+    """The grid's points are one C-contiguous float64 (N, 3) array; ``lat``
+    / ``lon`` are read-only (H, W, na) views of the pixels, in their dtype,
+    equal to the pixels repeated over the ladder."""
+    _, tds = datasets
+    step, lo, hi = alt
+    grid = get_extract_dataset("l1c", tds, alt_step=step, min_alt=lo, max_alt=hi)
+    h, w = tds.img_shp[0], tds.img_shp[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        pix = [np.nan_to_num(np.nanmean(a.reshape(h, w, -1), axis=-1)) for a in (tds.lat, tds.lon)]
+    na = grid.sample_alt.shape[0]
+    assert grid.shp == (h, w, na) and len(grid) == h * w * na
+    rep = [np.repeat(p[:, :, None], na, axis=2) for p in pix]
+    for got, want in zip((grid.lat, grid.lon), rep):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert not got.flags.writeable
+        np.testing.assert_array_equal(got, want)
+    assert grid.xyz.shape == (len(grid), 3) and grid.xyz.dtype == np.float64
+    assert grid.xyz.flags.c_contiguous
+
+
 def _with_product_name(ds, name):
     return dataclasses.replace(ds.granule, product_name=name)
 

@@ -98,3 +98,38 @@ def test_spherical_helpers_match_jax():
         )
     # the round trip is the identity to float64 rounding
     np.testing.assert_allclose(tsph.spherical_to_wgs84(s_t), xyz, rtol=1e-15, atol=1e-8)
+
+
+def _pixels(dtype) -> tuple[np.ndarray, np.ndarray]:
+    """A (6, 5) lat/lon grid of random pixels with the poles, the
+    antimeridian from both sides and the zeros that NaN pixels become."""
+    rng = np.random.default_rng(5)
+    lat = rng.uniform(-90, 90, (6, 5))
+    lon = rng.uniform(-180, 180, (6, 5))
+    lat[0, :4], lon[0, :4] = [90.0, -90.0, 0.0, 0.0], [180.0, -180.0, 0.0, 0.0]
+    return lat.astype(dtype), lon.astype(dtype)
+
+
+# the regional grids' ladders: np.arange(min_alt, max_alt + step / 2, step)
+_LADDERS = {
+    "default": np.arange(0.0, 20000.0 + 12.5, 25.0),
+    "min-max": np.arange(1000.0, 6000.0 + 250.0, 500.0),
+    "one": np.arange(0.0, 0.0 + 500.0, 1000.0),
+}
+
+
+@pytest.mark.parametrize("ladder", list(_LADDERS))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_horizontal_grid_to_cartesian_equals_the_repeated_grid(dtype, ladder):
+    """Bit-equal to ``horizontal_to_cartesian`` of the grid repeated over
+    the ladder, each input cast to float64: (H, W, na, 3), C-contiguous."""
+    lat, lon = _pixels(dtype)
+    alt = _LADDERS[ladder]
+    shape = lat.shape + alt.shape
+    rep = [np.repeat(a[:, :, None], alt.shape[0], axis=2).astype(np.float64) for a in (lat, lon)]
+    want = np.stack(
+        tw.horizontal_to_cartesian(*rep, np.broadcast_to(alt, shape).astype(np.float64)), axis=-1
+    )
+    got = tw.horizontal_grid_to_cartesian(lat, lon, alt)
+    assert got.shape == shape + (3,) and got.dtype == np.float64 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)

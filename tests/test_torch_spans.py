@@ -253,9 +253,23 @@ def test_extraction_spans_cover_each_batch(tmp_path):
         assert by[name][0].cpu_ns is not None, name
     assert all(r.cpu_ns is None for r in by["extract.batch"] + by["extract.normalize"])
     for r in records:
-        if r.name.startswith("extract.") and r.name not in ("extract.grid", "extract.query"):
+        if r.name.startswith("extract.") and r.name not in ("extract.grid", "extract.grid.points",
+                                                            "extract.query"):
             assert r.parent == query.id, r.name
     np.testing.assert_array_equal(sigma, run_extraction(tr.pipeline, grid, batch_size=100))
+
+
+def test_l1c_grid_build_records_its_points_span(tmp_path):
+    """One ``extract.grid.points`` span inside ``extract.grid``, counting
+    every point, with no CPU clock."""
+    tr = _make_trainer(tmp_path)
+    with spans.recording() as records:
+        grid = get_extract_dataset("l1c", tr.dataset, alt_step=2000.0)
+    by = _by_name(records)
+    (build,), (points,) = by["extract.grid"], by["extract.grid.points"]
+    assert points.parent == build.id
+    assert points.count == len(grid) > 0 and points.cpu_ns is None
+    assert build.start_ns <= points.start_ns <= points.end_ns <= build.end_ns
 
 
 def test_dataset_build_counts_the_rays(tmp_path):
