@@ -15,6 +15,13 @@ float32 GEMMs (``nn.Linear``), as the JAX package computes them outside
 Pallas. ``forward`` runs under autograd, and the fine samples carry the
 gradient of the coarse weights through their inverse CDF, as in the
 reference; ``extract`` switches autograd off.
+
+Spans (``utils/spans.py``): each pass is ``nerf.coarse`` / ``nerf.fine``
+(count: its points), with ``pipeline.sample`` (rays) around its sampling,
+``nerf.encode`` (points) around the point preprocessor and both frequency
+encodings, ``nerf.mlp`` (points) around its AtmoNeRF, and
+``pipeline.render`` (rays) around the activations and the compositing;
+``extract`` opens ``nerf.encode`` and ``nerf.mlp``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from atmonr_tpu_torch.ops.samplers import append_heights, sample_pdf, sample_uni
 from atmonr_tpu_torch.pipelines.base import Pipeline
 from atmonr_tpu_torch.training.optim import ClippedAdamW
 from atmonr_tpu_torch.training.schedules import apply_warmup
+from atmonr_tpu_torch.utils import spans
 
 
 class NeRFPipeline(Pipeline):
@@ -106,26 +114,32 @@ class NeRFPipeline(Pipeline):
     ) -> dict[str, torch.Tensor]:
         """One stage of the hierarchical forward."""
         b = ray_batch["origin"].shape[0]
-        if mode == "coarse":
-            n = self.n_coarse
-            pts, z_vals = sample_uniform_bins(ray_batch, n, draws.get("coarse_bins"))
-        else:
-            n = self.n_coarse + self.n_fine
-            pts, z_vals = sample_pdf(
-                ray_batch, weights_coarse, z_vals_coarse, self.n_fine, draws.get("fine_u")
-            )
-        pts, pts_enc = self._encode_points(pts)
-        dirs = ray_batch["dir"][:, None].expand(b, n, 3)
-        dirs_enc = torch.reshape(positional_encoding(dirs, self.L_d), (b * n, -1))
-        model = self.coarse if mode == "coarse" else self.fine
-        color, sigma = model(torch.cat([pts_enc, dirs_enc], dim=1), draws.get(f"{mode}_noise"))
-        color = torch.reshape(color, (b, n, -1))
-        sigma = torch.reshape(sigma, (b, n, -1))
+        n = self.n_coarse if mode == "coarse" else self.n_coarse + self.n_fine
+        with spans.span(f"nerf.{mode}", count=b * n):
+            with spans.span("pipeline.sample", count=b):
+                if mode == "coarse":
+                    pts, z_vals = sample_uniform_bins(ray_batch, n, draws.get("coarse_bins"))
+                else:
+                    pts, z_vals = sample_pdf(
+                        ray_batch, weights_coarse, z_vals_coarse, self.n_fine, draws.get("fine_u")
+                    )
+            with spans.span("nerf.encode", count=b * n):
+                pts, pts_enc = self._encode_points(pts)
+                dirs = ray_batch["dir"][:, None].expand(b, n, 3)
+                dirs_enc = torch.reshape(positional_encoding(dirs, self.L_d), (b * n, -1))
+            model = self.coarse if mode == "coarse" else self.fine
+            with spans.span("nerf.mlp", count=b * n):
+                color, sigma = model(
+                    torch.cat([pts_enc, dirs_enc], dim=1), draws.get(f"{mode}_noise")
+                )
+            with spans.span("pipeline.render", count=b):
+                color = torch.reshape(color, (b, n, -1))
+                sigma = torch.reshape(sigma, (b, n, -1))
 
-        # exp color activation, clamped at 11 against fp16 overflow
-        color = torch.exp(torch.clamp(color, max=11.0))
-        sigma = torch.relu(sigma)
-        color_map, _, weights = render(z_vals * (self.scale / 1000.0), color, sigma)
+                # exp color activation, clamped at 11 against fp16 overflow
+                color = torch.exp(torch.clamp(color, max=11.0))
+                sigma = torch.relu(sigma)
+                color_map, _, weights = render(z_vals * (self.scale / 1000.0), color, sigma)
         results = {
             f"color_{mode}": color,
             f"sigma_{mode}": sigma,
@@ -189,6 +203,9 @@ class NeRFPipeline(Pipeline):
     def extract(self, pts: torch.Tensor) -> torch.Tensor:
         """Extinction (M, num_bands) of the fine model at normalized-scene
         points (M, 3)."""
-        _, pts_enc = self._encode_points(pts[None])
-        _, sigma = self.fine.forward_pos_only(pts_enc.to(torch.float32))
+        m = pts.shape[0]
+        with spans.span("nerf.encode", count=m):
+            _, pts_enc = self._encode_points(pts[None])
+        with spans.span("nerf.mlp", count=m):
+            _, sigma = self.fine.forward_pos_only(pts_enc.to(torch.float32))
         return torch.clamp(sigma, min=0)

@@ -3,11 +3,13 @@ of the train step and the extraction, on the CPU: off, the shared no-op;
 on, nesting, parents and step ids across threads, ``record_function`` only
 under an active profiler, the summary; a small Instant-NGP Trainer's steps
 and ``run_extraction``'s batches with the recorder on and off; the spans in
-``Trainer.iterate(profile=True)``'s trace."""
+``Trainer.iterate(profile=True)``'s trace; a small hierarchical NeRF's
+passes, in its train steps and its extraction."""
 
 import json
 import threading
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -15,9 +17,12 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from atmonr_tpu_torch import get_extract_dataset, run_extraction
+from atmonr_tpu_torch import (
+    Trainer, get_dataset, get_extract_dataset, get_pipeline, run_extraction,
+)
+from atmonr_tpu_torch.utils.config import load_config
 from atmonr_tpu_torch.utils import spans
-from test_torch_pipeline import N_RAYS
+from test_torch_pipeline import N_RAYS, SCENE
 from test_torch_train import _make_trainer
 
 STEPS = 4  # the small Trainer refreshes its occupancy grid every 2
@@ -297,3 +302,92 @@ def test_a_profiled_loop_left_early_turns_the_recorder_off(tmp_path):
         assert spans.span("a") is not spans.span("b")  # on while profiling
         break
     assert spans.span("a") is spans.span("b")
+
+
+# -- the hierarchical NeRF ---------------------------------------------------------
+
+NERF_PASSES = {"coarse": 8, "fine": 8 + 16}  # points a ray through each pass's MLP
+
+
+def _nerf_trainer(root, name):
+    """``configs/nerf.json`` at 8 + 16 samples, 16 wide, ``N_RAYS`` a step."""
+    config = load_config(Path(__file__).resolve().parent.parent / "configs" / "nerf.json")
+    config["pipeline"].update(sampler={"N_c": 8, "N_f": 16}, mlp_hidden_dim=16)
+    ds = get_dataset(config["dataset"], SCENE, device="cpu")
+    pipe = get_pipeline(config["pipeline"], ds, device="cpu")
+    return Trainer(dict(config["trainer"], batch_size=N_RAYS), ds, pipe, name, root, seed=3,
+                   device="cpu")
+
+
+@pytest.fixture(scope="module")
+def nerf_steps(tmp_path_factory):
+    """Two NeRF Trainers of one seed, two steps on the same rows: one with
+    the recorder on, one with it off."""
+    out = {}
+    idx = torch.arange(N_RAYS)
+    for on in (True, False):
+        tr = _nerf_trainer(tmp_path_factory.mktemp("nerf_spans"), f"nerf{on}")
+        if on:
+            with spans.recording() as records:
+                losses = [tr.step(idx) for _ in range(2)]
+            out["records"] = records
+        else:
+            losses = [tr.step(idx) for _ in range(2)]
+        out[on] = (tr, losses)
+    return out
+
+
+def test_each_nerf_pass_opens_its_spans_with_counts(nerf_steps):
+    """A pass is ``nerf.<pass>`` under ``pipeline.forward``, holding one
+    each of ``pipeline.sample`` and ``pipeline.render`` (rays) and
+    ``nerf.encode`` and ``nerf.mlp`` (points), in that order; none reads
+    the CPU clock."""
+    records = nerf_steps["records"]
+    of, by = {r.id: r for r in records}, _by_name(records)
+    for mode, n in NERF_PASSES.items():
+        passes = by[f"nerf.{mode}"]
+        assert sorted(r.step for r in passes) == [1, 2]
+        for p in passes:
+            assert of[p.parent].name == "pipeline.forward" and p.count == N_RAYS * n
+            inner = sorted((r for r in records if r.parent == p.id), key=lambda r: r.start_ns)
+            assert [r.name for r in inner] == ["pipeline.sample", "nerf.encode", "nerf.mlp",
+                                               "pipeline.render"], mode
+            assert [r.count for r in inner] == [N_RAYS, N_RAYS * n, N_RAYS * n, N_RAYS]
+            for r in inner:
+                assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns and r.step == p.step
+    coarse, fine = by["nerf.coarse"][0], by["nerf.fine"][0]
+    assert coarse.end_ns <= fine.start_ns  # the fine pass samples from the coarse weights
+    assert all(r.cpu_ns is None for r in records)
+
+
+def test_nerf_steps_equal_with_the_recorder_on_and_off(nerf_steps):
+    (on, l_on), (off, l_off) = nerf_steps[True], nerf_steps[False]
+    assert [float(x) for x in l_on] == [float(x) for x in l_off]
+    for (n, a), (_, b) in zip(on.pipeline.named_parameters(), off.pipeline.named_parameters()):
+        assert torch.equal(a, b), n
+
+
+def test_nerf_spans_are_the_shared_no_op_when_off(nerf_steps, monkeypatch):
+    """Outside ``recording()`` the passes open nothing: every ``span`` call
+    of a step returns the one shared no-op."""
+    tr, _ = nerf_steps[False]
+    returned, real = [], spans.span
+
+    def watching(*args, **kwargs):
+        returned.append(real(*args, **kwargs))
+        return returned[-1]
+
+    monkeypatch.setattr(spans, "span", watching)
+    tr.step(torch.arange(N_RAYS))
+    assert len(returned) >= 8 and all(r is spans._NO_SPAN for r in returned)
+
+
+def test_nerf_extraction_opens_encode_and_mlp_spans(nerf_steps):
+    tr, _ = nerf_steps[False]
+    pts = torch.rand((37, 3)) * 2 - 1
+    with spans.recording() as records:
+        sigma = tr.pipeline.extract(pts)
+    by = _by_name(records)
+    (enc,), (mlp,) = by["nerf.encode"], by["nerf.mlp"]
+    assert enc.count == mlp.count == 37 and enc.end_ns <= mlp.start_ns
+    assert torch.equal(sigma, tr.pipeline.extract(pts))
