@@ -3,13 +3,28 @@ package's ``extract/runner.py``): the points stream through
 ``pipeline.extract`` in fixed-size batches on the pipeline's device, and
 the densities are rescaled to m^-1 by ``1/scale``. With a mesh, each of its
 W ranks queries its contiguous 1/W of every batch and the ranks' sigma is
-gathered at the end."""
+gathered at the end.
+
+On a card the full batches after the first replay one CUDA graph of
+``pipeline.extract(x) / scale``: the host's Python and launches for a batch
+take longer than the card's work on it, and a replay launches the same
+kernels on the same shapes in one call. Each call captures its own graph
+and drops it on return, so no graph outlives the parameters, buffers and
+Python state it read. The query's device work runs on one stream of the extraction's own
+(``_stream``), which captures and replays the graphs and runs the eager
+batches: cuBLAS keeps a workspace for each stream that runs a GEMM (32 MiB
+on an H100), so eager batches on a second stream would hold a second one."""
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from atmonr_tpu_torch.ops.hash_gather import hash_gather, quantize_tables
 from atmonr_tpu_torch.utils import spans
 
 
@@ -26,9 +41,21 @@ def run_extraction(
     ``points`` is an (N, 3) float64 array of ECEF coordinates in meters, or
     an object holding one as ``.xyz`` (an extraction grid). The points are
     normalized in float64 and cast to float32, as the JAX package does, and
-    run in batches of ``batch_size`` and one shorter tail. ``verbose``
-    prints the batch count as it goes. Returns sigma
-    (N, num_density_outputs) in m^-1 as a float32 numpy array.
+    run in batches of ``batch_size`` and one shorter tail, each written into
+    its rows of one sigma on the device. ``verbose`` prints the batch count
+    as it goes. Returns sigma (N, num_density_outputs) in m^-1 as a float32
+    numpy array.
+
+    On a CUDA device, where there are two full batches or more, the first
+    runs eagerly as the warm-up of a capture of ``pipeline.extract(x) /
+    scale`` at the full batch's rows, and every later full batch replays
+    that graph; the graph is dropped on return. The tail, a lone full
+    batch, and every batch on the CPU run eagerly. The graph launches the
+    same kernels on the same shapes, so sigma is the eager query's. Counters:
+    ``run_extraction.graph_batches``, ``.eager_batches`` (warm-ups
+    included) and ``.captures``; a replay adds the K1 and K1p launches of
+    its graph to ``hash_gather.launches`` and ``quantize_tables.launches``,
+    and a capture adds none.
 
     ``mesh`` (every rank of it calls): the batch is trimmed to a multiple
     of the mesh's W ranks, as in the JAX package, and the rank at (d, s)
@@ -41,6 +68,11 @@ def run_extraction(
         sigma = _query(pipeline, points, batch_size, verbose, mesh)
         query.count = len(sigma)
     return sigma
+
+
+run_extraction.graph_batches = 0
+run_extraction.eager_batches = 0
+run_extraction.captures = 0
 
 
 def _query(pipeline, points, batch_size: int, verbose: bool, mesh) -> np.ndarray:
@@ -57,30 +89,107 @@ def _query(pipeline, points, batch_size: int, verbose: bool, mesh) -> np.ndarray
         coord = mesh.get_coordinate()
         rank = coord[0] * mesh.mesh.shape[1] + coord[1]
         batch_size = max(batch_size - batch_size % n_ranks, n_ranks)
-    nb = -(-n // batch_size)
-    with spans.span("extract.to_device", cpu=True):
-        pts_all = pts_all.to(pipeline.device)
-
-    out, shares = [], []
-    for i in range(nb):
-        with spans.span("extract.batch", count=min(batch_size, n - i * batch_size)):
-            batch = pts_all[i * batch_size : (i + 1) * batch_size]
-            if mesh is not None:
-                m = -(-batch.shape[0] // n_ranks)
-                shares.append(m)
-                batch = batch[rank * m : (rank + 1) * m]
-                if batch.shape[0] < m:  # the tail's last ranks: pad with the origin
-                    batch = torch.cat([batch, batch.new_zeros((m - batch.shape[0], 3))])
-            out.append(pipeline.extract(batch) / scale)
+    sizes = [min(batch_size, n - lo) for lo in range(0, n, batch_size)]
+    shares = [-(-size // n_ranks) for size in sizes]  # this rank's rows of each batch
+    with _own_stream(pipeline.device):
+        with spans.span("extract.to_device", cpu=True):
+            pts_all = pts_all.to(pipeline.device)
+        graphed = pts_all.device.type == "cuda" and sizes.count(batch_size) > 1
+        captured, sigma, row = None, None, 0
+        for i, (size, m) in enumerate(zip(sizes, shares)):
+            with spans.span("extract.batch", count=size):
+                batch = pts_all[i * batch_size : i * batch_size + size]
+                if mesh is not None:
+                    batch = batch[rank * m : (rank + 1) * m]
+                    if batch.shape[0] < m:  # the tail's last ranks: pad with the origin
+                        batch = torch.cat([batch, batch.new_zeros((m - batch.shape[0], 3))])
+                if not (graphed and size == batch_size):
+                    out = pipeline.extract(batch) / scale
+                    run_extraction.eager_batches += 1
+                elif captured is None:
+                    with spans.span("extract.capture", count=m):
+                        captured, out = _capture(pipeline, batch, scale)
+                    run_extraction.captures += 1
+                    run_extraction.eager_batches += 1
+                else:
+                    out = captured.replay(batch)
+                    run_extraction.graph_batches += 1
+                if sigma is None:
+                    sigma = out.new_empty((sum(shares), out.shape[1]))
+                sigma[row : row + m].copy_(out)
+                row += m
+            if verbose:
+                print(f"extract batch {i + 1}/{len(sizes)}", end="\r")
         if verbose:
-            print(f"extract batch {i + 1}/{nb}", end="\r")
-    if verbose:
-        print()
-    with spans.span("extract.to_host", cpu=True):
-        sigma = torch.cat(out, dim=0)
-        if mesh is not None:
-            sigma = _gather_shares(sigma, shares, mesh)[:n]
-        return sigma.cpu().numpy()
+            print()
+        with spans.span("extract.to_host", cpu=True):
+            if mesh is not None:
+                sigma = _gather_shares(sigma, shares, mesh)[:n]
+            return sigma.cpu().numpy()
+
+
+@contextmanager
+def _own_stream(device):
+    """On a card, the block on ``_stream``, after the work already queued
+    on the current stream and before the work queued on it later; on the
+    CPU, nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield
+        return
+    current = torch.cuda.current_stream(device)
+    stream = _stream(current.device_index)
+    stream.wait_stream(current)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        current.wait_stream(stream)
+
+
+@functools.cache
+def _stream(index: int) -> torch.cuda.Stream:
+    """The extraction's stream on card ``index``, one for the process."""
+    return torch.cuda.Stream(index)
+
+
+@dataclasses.dataclass
+class _CapturedQuery:
+    """One CUDA graph of ``pipeline.extract(x) / scale`` at a static input
+    and output. ``launches`` are the counter increments of one replay:
+    (counted function, its ``launches`` key, launches). A replay's result
+    is valid until the next replay."""
+
+    graph: torch.cuda.CUDAGraph
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: list
+
+    def replay(self, batch: torch.Tensor) -> torch.Tensor:
+        self.static_in.copy_(batch)
+        self.graph.replay()
+        for fn, k, v in self.launches:
+            fn.launches[k] += v
+        return self.static_out
+
+
+def _capture(pipeline, first: torch.Tensor, scale) -> tuple[_CapturedQuery, torch.Tensor]:
+    """The documented pattern, on the current stream, which ``_own_stream``
+    made a side stream: a warm-up on ``first``, whose sigma it returns
+    beside the query, then the capture."""
+    static_in = first.clone()
+    out = pipeline.extract(static_in) / scale  # lazy set-up (libraries, handles) before capture
+    counted = (hash_gather, quantize_tables)
+    before = [dict(fn.launches) for fn in counted]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.current_stream(first.device),
+                          capture_error_mode="thread_local"):
+        static_out = pipeline.extract(static_in) / scale
+    launches = []
+    for fn, was in zip(counted, before):  # a capture launches nothing; each replay does
+        launches += [(fn, k, v - was[k]) for k, v in fn.launches.items() if v != was[k]]
+        fn.launches.update(was)
+    return _CapturedQuery(graph, static_in, static_out, launches), out
 
 
 def _gather_shares(local: torch.Tensor, shares: list[int], mesh) -> torch.Tensor:

@@ -29,6 +29,7 @@ Pair-bucket grids never reach a kernel: the kernels index per cell.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from functools import cached_property
 
@@ -178,6 +179,13 @@ def _corner_offsets(n_dims: int) -> np.ndarray:
     return corners[:, ::-1].copy()
 
 
+@functools.cache
+def _corners_on(n_dims: int, device: torch.device) -> torch.Tensor:
+    """``_corner_offsets(n_dims)`` on ``device``, copied there once: a
+    host-to-device copy cannot run inside a CUDA graph's capture."""
+    return torch.as_tensor(_corner_offsets(n_dims), device=device)
+
+
 def _spatial_hash(g: torch.Tensor, n_dims: int, mod: int) -> torch.Tensor:
     """Instant-NGP spatial hash of integer coords (..., D) mod ``mod`` (a
     power of two). uint32 arithmetic in int64, masked after each product."""
@@ -228,7 +236,7 @@ def level_indices(
     """
     res = cfg.level_resolutions[level]
     base, frac = _base_and_frac(x, cfg, level)
-    corners = torch.as_tensor(_corner_offsets(cfg.n_dims), device=x.device)
+    corners = _corners_on(cfg.n_dims, x.device)
     g = base.to(torch.int64)[:, None, :] + corners[None, :, :]  # (M, 2^D, D)
 
     if cfg.level_is_dense(level):

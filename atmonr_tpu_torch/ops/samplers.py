@@ -12,6 +12,7 @@ variant used by eval and the parity tests); callers make the draws from a
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import torch
@@ -214,6 +215,13 @@ def sample_biased_bins(
     return pts, z_vals
 
 
+@functools.cache
+def _constant(values: tuple[float, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values`` as a ``dtype`` tensor on ``device``, copied there once: a
+    host-to-device copy cannot run inside a CUDA graph's capture."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def append_heights(
     pts: torch.Tensor, ray_origin_height: float, scale: float, offset
 ) -> torch.Tensor:
@@ -222,7 +230,8 @@ def append_heights(
     (lat, lon, alt) in the points' own dtype and divide the altitude by
     ``ray_origin_height``. In float32 the altitude carries the conversion's
     ~1-6 m error floor (``geo/wgs84.py::cartesian_to_horizontal``)."""
-    offset = torch.as_tensor(offset, dtype=pts.dtype, device=pts.device)
+    offset = _constant(tuple(torch.as_tensor(offset, dtype=torch.float64).tolist()),
+                       pts.dtype, pts.device)
     xyz = pts * scale + offset
     _, _, alt = cartesian_to_horizontal(xyz[..., 0], xyz[..., 1], xyz[..., 2], xp=torch)
     return torch.cat([pts, (alt / ray_origin_height)[..., None]], dim=-1)

@@ -75,7 +75,12 @@ Phases, each of which raises on failure:
    to it. Each ``[extract <grid>]`` line gives the points, the host seconds
    of the grid build, points/s over the whole ``run_extraction`` (both
    copies included), K1's launches against ceil(N / 32,768) (a count that
-   differs raises) and peak device memory; each ``[compare] extract
+   differs raises; on the card ``run_extraction`` replays a CUDA graph for
+   each full batch after the first and adds the launches its capture
+   recorded at each replay, so these counts include replays that the runner
+   counts: ``run_extraction.graph_batches`` is held to the full batches
+   after the first, and a profiled voxelgrid query's K1 and K1p counts to
+   the kernels its trace saw) and peak device memory; each ``[compare] extract
    <grid>`` line 16,384 of its points (seed 0) on the card and on the CPU,
    float32 MLPs and one preprocessor, at most 1% of rows outside rtol
    1e-4 + 1e-6 of max|sigma|, and the main run's bfloat16 sigma against the
@@ -356,6 +361,7 @@ def k2_bound(m: int, cfg) -> tuple[float, str, int]:
 
 
 def reset_counts() -> None:
+    from atmonr_tpu_torch import run_extraction
     from atmonr_tpu_torch.ops.block_fetch import block_fetch
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
     from atmonr_tpu_torch.ops.hash_gather import hash_gather
@@ -366,6 +372,26 @@ def reset_counts() -> None:
                    block_fetch.launches):
         for key in counts:
             counts[key] = 0
+    run_extraction.graph_batches = run_extraction.eager_batches = run_extraction.captures = 0
+
+
+def graph_counts() -> tuple[int, int, int]:
+    """``run_extraction``'s (graph_batches, eager_batches, captures)."""
+    from atmonr_tpu_torch import run_extraction
+
+    return run_extraction.graph_batches, run_extraction.eager_batches, run_extraction.captures
+
+
+def check_graphed(tag: str, n: int, counts: tuple[int, int, int]) -> None:
+    """The graph counters of one ``run_extraction`` of n points on the card
+    in ``EXTRACT_BATCH`` batches: with two full batches or more, one capture
+    on the first (its warm-up runs eagerly) and a replay for each later
+    one; the tail and a lone full batch run eagerly."""
+    full, batches = n // EXTRACT_BATCH, -(-n // EXTRACT_BATCH)
+    want = (full - 1, batches - full + 1, 1) if full > 1 else (0, batches, 0)
+    if counts != want:
+        raise RuntimeError(f"{tag}: graph_batches, eager_batches, captures {counts}, "
+                           f"expected {want}")
 
 
 def read_counts() -> dict:
@@ -769,6 +795,7 @@ def phase_slice(card: str) -> tuple[dict, dict]:
         raise RuntimeError("extraction result not finite, non-negative, (N, 1)")
     if launched(counts) != encodes("q8", 1 + 5 + n_batches, 5):
         raise RuntimeError(f"launches on the inference path: {show(counts)}")
+    check_graphed("extract", N_EXTRACT, graph_counts())
     steady = statistics.median(fwd_s[1:4])
     log(f"[slice] occupancy refresh ({pipe.occ_cfg.num_cells} cells): {refresh_s * 1e3:.2f} ms, "
         f"{pipe.occ_cfg.num_cells / refresh_s:.0f} cells/s on {card}")
@@ -1176,6 +1203,7 @@ def check_extract(tag: str, grid, sigma: np.ndarray, counts: dict, build_s: floa
     if launched(counts) != encodes("q8", batches):
         raise RuntimeError(f"{tag}: launches {show(counts)}, expected K1 and K1p q8 D=3 "
                            f"x{batches}")
+    check_graphed(tag, n, graph_counts())
     log(f"[{tag}] {n} points, shape {grid.shp}: grid built on the host in {build_s:.2f} s; "
         f"run_extraction (both copies included) {query_s:.3f} s = {n / query_s:.0f} points/s; "
         f"K1 launches {show(counts)} for ceil({n}/{EXTRACT_BATCH}) = {batches} batches; peak "
@@ -1265,11 +1293,22 @@ def phase_extract(ctx: dict, card: str, rows: list[dict]) -> dict:
                 # where the time of a query goes: one more run, profiled
                 from torch.profiler import ProfilerActivity, profile
 
+                reset_counts()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     run_extraction(pipe, grid, batch_size=EXTRACT_BATCH)
                     wall_us = (time.perf_counter() - t0) * 1e6
-                log_profile(prof, f"{tag} run_extraction", query_s * 1e6, wall_us, card, top=8)
+                _, _, n_by_name = log_profile(prof, f"{tag} run_extraction", query_s * 1e6,
+                                              wall_us, card, top=8)
+                # the launch counters count graph replays from the capture's
+                # record: hold them to the kernels the trace saw
+                check_graphed(f"{tag} profiled", len(grid), graph_counts())
+                seen = {k: sum(c for name, c in n_by_name.items() if kernel in name)
+                        for k, kernel in ((("K1", "q8", 3), "hash_gather_"),
+                                          (("K1p", "q8", 3), "quantize_kernel"))}
+                if launched(read_counts()) != seen:
+                    raise RuntimeError(f"{tag} profiled: launch counters {show(read_counts())}, "
+                                       f"the trace's kernels {seen}")
             if mode == "l1c":
                 tail = len(grid) % EXTRACT_BATCH
                 log(f"[{tag}] the tail batch of {tail} points: "

@@ -10,6 +10,8 @@ installed:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -622,6 +624,92 @@ def test_kernel_less_position_grid_on_the_card(dev, tmp_path, monkeypatch, varia
     losses = [trainer.step(torch.arange(250, device=dev)) for _ in range(2)]
     assert _moved(before) == ({("bf16", 2): 2}, {2: 2})
     assert all(bool(torch.isfinite(x)) for x in losses)
+
+
+def _encode_launches() -> dict:
+    return {**{("K1",) + k: v for k, v in hgo.hash_gather.launches.items()},
+            **{("K1p",) + k: v for k, v in hgo.quantize_tables.launches.items()}}
+
+
+_GRAPHED_EXTRACTIONS = {  # kind: (config, include_height)
+    "q8": ("instant_ngp_tpu_occ13.json", False),  # the flagship: K1p and K1 q8
+    "nerf": ("nerf.json", False),  # GEMMs alone
+    "pb": ("instant_ngp_pb.json", False),  # pair-bucket hash: the exact gather
+    "ngp_height": ("instant_ngp_tpu.json", True),  # a 4-D position grid, no kernel
+    "nerf_height": ("nerf.json", True),
+}
+
+
+@pytest.mark.parametrize("kind", list(_GRAPHED_EXTRACTIONS))
+def test_extraction_replays_a_cuda_graph(dev, kind):
+    """``run_extraction`` over two full 32,768-point batches and a tail of
+    5,000, for the flagship q8 pipeline, the NeRF, a pair-bucket grid and
+    both pipelines with ``include_height``: each call warms up on the first
+    full batch, captures once, replays the second and drops the graph; after
+    ``load_params`` (in place) the next call reads the new values; one full
+    batch and a tail capture nothing. Each sigma equals the eager query's
+    (``pipeline.extract`` of each batch over ``scale``) bit for bit, and K1
+    and K1p advance by the eager query's launches."""
+    from atmonr_tpu_torch import load_config, run_extraction
+
+    name, height = _GRAPHED_EXTRACTIONS[kind]
+    config = load_config(f"configs/{name}")
+    if height:
+        config["pipeline"].update(include_height=True, point_preprocessor=None)
+        if kind == "nerf_height":
+            config["pipeline"]["encoder"]["L_x"] = config["pipeline"]["encoder"]["L_x"] + [10]
+    ds = get_dataset(config["dataset"], "synthetic:16x8x2", device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a varying L_x without a preprocessor
+        pipe = get_pipeline(config["pipeline"], ds, device=dev,
+                            generator=torch.Generator().manual_seed(3))
+    if isinstance(pipe, instant_ngp.InstantNGPPipeline):
+        assert pipe.pos_cfg.n_dims == (4 if height else 3)
+        assert (pipe.pos_cfg.hashed_tile == "on") == (kind == "pb")
+        with torch.no_grad():  # a field, not zeros
+            pipe.pos_table.uniform_(-0.5, 0.5)
+            pipe.pos_mlp.layers[-1].weight.abs_()
+    b, full = 32768, 2
+    n = full * b + 5000
+    rng = np.random.default_rng(4)
+    xyz = rng.uniform(-0.9, 0.9, (n, 3)) * ds.scale + np.asarray(ds.offset)[None]
+    pts = torch.from_numpy(((xyz - np.asarray(pipe.offset)[None]) / pipe.scale)
+                           .astype(np.float32)).to(dev)
+
+    def moved(before):
+        return {k: v - before[k] for k, v in _encode_launches().items() if v != before[k]}
+
+    def eager():
+        before = _encode_launches()
+        with torch.no_grad():
+            out = torch.cat([pipe.extract(pts[i:i + b]) / pipe.scale for i in range(0, n, b)])
+        return out.cpu().numpy(), moved(before)
+
+    def counters():
+        return (run_extraction.graph_batches, run_extraction.eager_batches,
+                run_extraction.captures)
+
+    def graphed(points):
+        before, launches = counters(), _encode_launches()
+        sigma = run_extraction(pipe, points, batch_size=b)
+        return sigma, tuple(a - c for a, c in zip(counters(), before)), moved(launches)
+
+    want, want_launches = eager()
+    assert want.shape[0] == n and (want > 0).mean() > 0.1
+    assert bool(want_launches) == (kind == "q8")
+    for _ in range(2):  # each call captures on its first full batch and replays the rest
+        got, got_counts, got_launches = graphed(xyz)
+        assert got_counts == (full - 1, 2, 1) and got_launches == want_launches
+        np.testing.assert_array_equal(got, want)
+    got, got_counts, _ = graphed(xyz[: b + 5000])  # one full batch: nothing to replay
+    assert got_counts == (0, 2, 0)
+    np.testing.assert_array_equal(got, want[: b + 5000])
+    pipe.load_params({k: v.flip(0).clone() for k, v in pipe.named_parameters()})
+    fresh, _ = eager()
+    assert not np.array_equal(fresh, want)
+    got, got_counts, _ = graphed(xyz)
+    assert got_counts == (full - 1, 2, 1)
+    np.testing.assert_array_equal(got, fresh)
 
 
 def test_nerf_on_the_card(dev, tmp_path, monkeypatch):

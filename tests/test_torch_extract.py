@@ -308,6 +308,38 @@ def test_run_extraction_verbose_counts_batches(datasets, capsys):
     assert "extract batch 3/3" in out and out.endswith("\n")
 
 
+def _extraction_counters() -> tuple[int, int, int]:
+    return (run_extraction.graph_batches, run_extraction.eager_batches, run_extraction.captures)
+
+
+def test_run_extraction_is_eager_on_the_cpu(datasets):
+    """On the CPU every batch, full or tail, runs eagerly: no graph is
+    captured or replayed."""
+    _, tds = datasets
+    tpipe = get_pipeline(_config("q8")["pipeline"], tds, device="cpu")
+    grid = get_extract_dataset("l1c", tds, alt_step=2000.0)
+    before = _extraction_counters()
+    run_extraction(tpipe, grid, batch_size=500)
+    run_extraction(tpipe, grid, batch_size=500)
+    graphed, eager, captures = (a - b for a, b in zip(_extraction_counters(), before))
+    assert (graphed, eager, captures) == (0, 2 * -(-len(grid) // 500), 0)
+
+
+def test_run_extraction_writes_each_batch_into_one_sigma(datasets):
+    """Sigma over a grid with a tail is, bit for bit, ``pipeline.extract``
+    of each batch over ``scale``, in batch order."""
+    _, tds = datasets
+    tpipe = get_pipeline(_config("q8")["pipeline"], tds, device="cpu")
+    grid = get_extract_dataset("l1c", tds, alt_step=2000.0)
+    got = run_extraction(tpipe, grid, batch_size=500)
+    pts = torch.from_numpy(((grid.xyz - np.asarray(tpipe.offset)[None]) / tpipe.scale)
+                           .astype(np.float32))
+    want = torch.cat([tpipe.extract(pts[i:i + 500]) / tpipe.scale
+                      for i in range(0, len(pts), 500)]).numpy()
+    assert len(grid) % 500 and got.shape == want.shape == (len(grid), 1)
+    np.testing.assert_array_equal(got, want)
+
+
 # -- writers -------------------------------------------------------------------
 
 _SCALE_ATTRS = {"DIMENSION_LIST", "REFERENCE_LIST", "CLASS", "NAME"}

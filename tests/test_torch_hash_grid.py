@@ -75,6 +75,17 @@ def test_config_fields_match_jax(options, n_dims):
         assert tc.level_is_dense(level) == jc.level_is_dense(level)
 
 
+@pytest.mark.parametrize("n_dims", [2, 3, 4])
+def test_corner_offsets_are_copied_to_a_device_once(n_dims):
+    """``level_indices`` reads its corner offsets from one tensor a device,
+    made at the first call: a CUDA graph's capture copies nothing from the
+    host."""
+    corners = thg._corners_on(n_dims, torch.device("cpu"))
+    np.testing.assert_array_equal(corners.numpy(), thg._corner_offsets(n_dims))
+    assert corners.dtype == torch.int64
+    assert thg._corners_on(n_dims, torch.device("cpu")) is corners
+
+
 def test_flagship_grid_shape():
     """The numbers the kernel's source note and PERF.md use."""
     _, pos = _cfgs(FLAGSHIP, 3, "q8")

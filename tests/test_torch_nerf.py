@@ -296,6 +296,26 @@ def _golden_batch() -> dict:
             "irgb_idx": _t(G_PIPE["irgb_idx"].astype(np.int32))}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_append_heights_copies_its_offset_to_a_device_once(dtype):
+    """The offset reaches the points' device once, whatever form it comes
+    in (a float64 array, a tuple, a tensor): a CUDA graph's capture copies
+    nothing from the host. The heights equal those of the offset cast to
+    the points' dtype."""
+    ds = get_dataset(_nerf_config()["dataset"], SCENE, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (7, 3))).to(dtype)
+    want = tsamp.append_heights(x, 20000, ds.scale, ds.offset)
+    misses = tsamp._constant.cache_info().misses
+    for offset in (ds.offset, tuple(ds.offset.tolist()), torch.from_numpy(ds.offset)):
+        np.testing.assert_array_equal(tsamp.append_heights(x, 20000, ds.scale, offset), want)
+    assert tsamp._constant.cache_info().misses == misses
+    from atmonr_tpu_torch.geo.wgs84 import cartesian_to_horizontal
+
+    xyz = x * ds.scale + torch.as_tensor(ds.offset, dtype=dtype)
+    _, _, alt = cartesian_to_horizontal(*xyz.unbind(-1), xp=torch)
+    np.testing.assert_array_equal(want[:, 3], alt / 20000)
+
+
 def test_pipeline_matches_the_golden():
     """``tests/golden/nerf_pipeline.npz`` (the reference's torch, deterministic
     mode): radiances, loss and all 44 gradient tensors at the tolerances of
