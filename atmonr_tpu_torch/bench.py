@@ -1,16 +1,15 @@
 """Headline benchmark of the port: Instant-NGP training throughput (rays/s
 on one card), the counterpart of the JAX repo's root ``bench.py``.
 
-Times a hand-rolled train step of ``configs/instant_ngp_tpu_occ13.json``
-at full width (q8 2^13 hash tables with stochastic rounding, 32 occupancy
-probes placing 24 fine samples a ray, 32-wide MLPs, clipped AdamW at a
-constant lr of 1e-2) on a ``make_synthetic_granule(48, 24, 2)`` granule,
-8,192 rays a step, parameters from seed 0: the batch gather from the
-device-resident rays, forward, loss, backward (kernel K2), the optimizer
-step, and the occupancy refresh every ``update_every`` steps on the host's
-cadence (inside the timed window). There is no Trainer here: no progress
-scatter, no epoch metrics, no restart check, so its rays/s is above the
-Trainer's steady step.
+Times ``Trainer.step`` of ``configs/instant_ngp_tpu_occ13.json`` at full
+width (q8 2^13 hash tables with stochastic rounding, 32 occupancy probes
+placing 24 fine samples a ray, 32-wide MLPs, clipped AdamW) on a
+``make_synthetic_granule(48, 24, 2)`` granule, 8,192 rays a step: the
+config's trainer block at a constant lr of 1e-2 and without the progress
+scatter (``trainer_config``), a ``Trainer`` of seed 0 (its parameters, draws
+and refresh jitter), and one permutation from its ``perm`` stream that the
+steps cycle through. The occupancy refresh every ``update_every`` steps is
+the Trainer's, inside the timed window.
 
 Timing: one refresh before timing, ``warm_until_steady`` in blocks of 10
 steps (at most 400), each block's rate printed as a provisional line, a
@@ -44,9 +43,7 @@ WARMUP_BLOCK = 10
 MAX_WARMUP_ITERS = 400
 PROVISIONAL_ITERS = 50
 TIMED_ITERS = 250
-# the seeds of the JAX bench's keys: parameters 0, permutation 1, draws 2,
-# refresh jitter 3
-SEEDS = {"params": 0, "perm": 1, "draws": 2, "aux": 3}
+SEED = 0  # the Trainer's: parameters, permutation, draws, refresh jitter
 
 _T0 = time.perf_counter()
 
@@ -73,36 +70,12 @@ def emit(rays_per_s: float, device: str, provisional: bool = False,
     print(json.dumps(line), flush=True)
 
 
-def make_train_step(pipe, optimizer, rays: dict, perm: torch.Tensor, batch_size: int,
-                    draws_gen: torch.Generator | None = None,
-                    aux_gen: torch.Generator | None = None):
-    """The bench's step as ``one_iter(step, draws=None, aux_jitter=None)``:
-    the batch of ``perm``'s slot ``step % steps_per_epoch``, forward with the
-    draws of ``draws_gen`` (or ``draws``), loss, backward, optimizer step;
-    then, every ``update_every`` steps, the occupancy refresh from
-    ``aux_gen`` (or ``aux_jitter``). Returns the loss (detached, on the
-    device)."""
-    from atmonr_tpu_torch.data.batching import batch_at_step
-
-    every = pipe.occ_cfg.update_every if pipe.occ_cfg is not None else 0
-    steps_per_epoch = perm.shape[0] // batch_size
-
-    def one_iter(step: int, draws=None, aux_jitter=None) -> torch.Tensor:
-        batch = batch_at_step(rays, perm, step % steps_per_epoch, batch_size)
-        if draws is None:
-            draws = pipe.make_draws(batch_size, draws_gen)
-        optimizer.zero_grad()
-        loss = pipe.compute_loss(batch, pipe(batch, draws=draws))
-        loss.backward()
-        optimizer.step()
-        if every and (step + 1) % every == 0:
-            if aux_jitter is None:
-                pipe.update_aux(generator=aux_gen)
-            else:
-                pipe.update_aux(jitter=aux_jitter)
-        return loss.detach()
-
-    return one_iter
+def trainer_config(trainer: dict, batch_size: int) -> dict:
+    """The bench's Trainer block: ``trainer`` (a config's) at ``batch_size``
+    rays a step and a constant lr of ``LR``, without the progress scatter."""
+    return {**trainer, "batch_size": batch_size, "progress": False,
+            "optimizer": {**trainer["optimizer"], "lr": LR},
+            "scheduler": {"type": "fixed", "gamma": 1.0, "decay_start": 0, "decay_interval": 1}}
 
 
 def main(*, device: str | torch.device | None = None, batch_size: int = BATCH_SIZE,
@@ -116,6 +89,7 @@ def main(*, device: str | torch.device | None = None, batch_size: int = BATCH_SI
     from atmonr_tpu_torch.data.batching import epoch_permutation
     from atmonr_tpu_torch.data.harp2 import HARP2Dataset
     from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
+    from atmonr_tpu_torch.tools import tool_trainer
     from atmonr_tpu_torch.utils.benchmark import timed_window, warm_until_steady
     from atmonr_tpu_torch.utils.device import resolve_device
 
@@ -126,30 +100,32 @@ def main(*, device: str | torch.device | None = None, batch_size: int = BATCH_SI
     dataset = HARP2Dataset(config["dataset"], make_synthetic_granule(**(granule or GRANULE)),
                            device=dev)
     _phase("dataset ready")
-    pipe = get_pipeline(config["pipeline"], dataset, device=dev,
-                        generator=torch.Generator().manual_seed(SEEDS["params"]))
-    optimizer = pipe.make_optimizer(config["trainer"]["optimizer"], LR)
-    rays = dataset.rays(dev)
-    gens = {k: torch.Generator(device=dev).manual_seed(s) for k, s in SEEDS.items()
-            if k != "params"}
-    perm = epoch_permutation(gens["perm"], len(dataset), batch_size)
-    one_iter = make_train_step(pipe, optimizer, rays, perm, batch_size, gens["draws"],
-                               gens["aux"])
-    _phase("pipeline + parameters ready")
-    pipe.update_aux(generator=gens["aux"])  # one refresh before timing
+    pipe = get_pipeline(config["pipeline"], dataset, device=dev)
+    with tool_trainer(trainer_config(config["trainer"], batch_size), dataset, pipe, "bench",
+                      SEED) as trainer:
+        b = trainer.batch_size
+        perm = epoch_permutation(trainer.generators["perm"], trainer.num_rays, b)
+        spe = trainer.steps_per_epoch
 
-    step = warm_until_steady(
-        one_iter, float, block=warmup_block, max_iters=max_warmup_iters,
-        on_block=lambda n, dt: emit(batch_size * n / dt, name, provisional=True,
-                                    source="warmup block"),
-    )
-    _phase(f"warmup steady at step {step}")
-    dt = timed_window(one_iter, float, start_step=step, iters=provisional_iters)
-    step += provisional_iters
-    emit(batch_size * provisional_iters / dt, name, provisional=True)
-    dt = timed_window(one_iter, float, start_step=step, iters=timed_iters)
+        def one_iter(step: int) -> torch.Tensor:
+            slot = step % spe
+            return trainer.step(perm[slot * b : (slot + 1) * b])
+
+        _phase("pipeline + parameters ready")
+        pipe.update_aux(generator=trainer.generators["aux"])  # one refresh before timing
+
+        step = warm_until_steady(
+            one_iter, float, block=warmup_block, max_iters=max_warmup_iters,
+            on_block=lambda n, dt: emit(b * n / dt, name, provisional=True,
+                                        source="warmup block"),
+        )
+        _phase(f"warmup steady at step {step}")
+        dt = timed_window(one_iter, float, start_step=step, iters=provisional_iters)
+        step += provisional_iters
+        emit(b * provisional_iters / dt, name, provisional=True)
+        dt = timed_window(one_iter, float, start_step=step, iters=timed_iters)
     _phase("timed window done")
-    rays_per_s = batch_size * timed_iters / dt
+    rays_per_s = b * timed_iters / dt
     emit(rays_per_s, name)
     return rays_per_s
 

@@ -1,18 +1,19 @@
 """Interleaved A/B of the ``clip_global_norm`` guard's throughput cost: the
 counterpart of the JAX repo's ``tools/ab_clip_cost.py``.
 
-One process times the flagship's step (``bench.make_train_step``, the
-occupancy refresh every ``update_every`` steps) with and without the
-global-norm clip, in turns (noclip, clip, noclip, clip, noclip, clip), so
-that warm-up and drift cannot pass for the guard's cost. Each arm has its
-own pipeline, optimizer and draws, from the same seeds, on a 48x24-pixel
-synthetic granule; each window ends in a sync.
+One process times the flagship's step (``Trainer.step`` on the config's
+trainer block, the occupancy refresh every ``update_every`` steps) with and
+without the global-norm clip, in turns (noclip, clip, noclip, clip, noclip,
+clip), so that warm-up and drift cannot pass for the guard's cost. Each arm
+is a Trainer of its own, from the same seed, on a 48x24-pixel synthetic
+granule; each window ends in a sync.
 
     python -m atmonr_tpu_torch.tools.ab_clip_cost [iters=250]
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 
@@ -33,10 +34,9 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     per window and the cost (1 - clip / noclip, negative when clip is
     faster). ``device`` is ``cuda`` unless given."""
     from atmonr_tpu_torch import get_pipeline, load_config
-    from atmonr_tpu_torch.bench import make_train_step
-    from atmonr_tpu_torch.data.batching import epoch_permutation
     from atmonr_tpu_torch.data.harp2 import HARP2Dataset
     from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
+    from atmonr_tpu_torch.tools import batches, tool_trainer
     from atmonr_tpu_torch.utils.device import describe_device, resolve_device
     from atmonr_tpu_torch.utils.timing import fence
 
@@ -52,37 +52,34 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     noclip_cfg = {k: v for k, v in clip_cfg.items() if k != "clip_global_norm"}
     ds = HARP2Dataset(config["dataset"], make_synthetic_granule(
         **(granule or {"height": 48, "width": 24, "views_per_band": 2})), device=dev)
-    b = min(batch_size, len(ds))
-    rays = ds.rays(dev)
-    perm = epoch_permutation(torch.Generator(device=dev).manual_seed(1), len(ds), b)
 
     arms = {}
-    for name, opt_cfg in (("clip", clip_cfg), ("noclip", noclip_cfg)):
-        pipe = get_pipeline(config["pipeline"], ds, device=dev,
-                            generator=torch.Generator().manual_seed(0))
-        opt = pipe.make_optimizer(opt_cfg, float(opt_cfg["lr"]))
-        gens = [torch.Generator(device=dev).manual_seed(s) for s in (2, 3)]
-        arms[name] = {"step": make_train_step(pipe, opt, rays, perm, b, *gens), "i": 0,
-                      "rates": []}
+    with contextlib.ExitStack() as stack:
+        for name, opt_cfg in (("clip", clip_cfg), ("noclip", noclip_cfg)):
+            pipe = get_pipeline(config["pipeline"], ds, device=dev)
+            tr = stack.enter_context(tool_trainer(config["trainer"], ds, pipe, name,
+                                                  batch_size=batch_size, optimizer=opt_cfg))
+            arms[name] = {"trainer": tr, "rows": batches(tr), "rates": []}
 
-    def window(name: str, n: int, timed: bool) -> None:
-        arm = arms[name]
-        fence(dev)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            loss = arm["step"](arm["i"])
-            arm["i"] += 1
-        float(loss)  # sync
-        dt = time.perf_counter() - t0
-        if timed:
-            arm["rates"].append(b * n / dt)
-            print(f"{name:7s} {dt / n * 1e3:7.2f} ms/iter {b * n / dt / 1e3:8.1f}k rays/s",
-                  flush=True)
+        def window(name: str, n: int, timed: bool) -> None:
+            arm = arms[name]
+            tr = arm["trainer"]
+            fence(dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                loss = tr.step(next(arm["rows"]))
+            float(loss)  # sync
+            dt = time.perf_counter() - t0
+            if timed:
+                b = tr.batch_size
+                arm["rates"].append(b * n / dt)
+                print(f"{name:7s} {dt / n * 1e3:7.2f} ms/iter {b * n / dt / 1e3:8.1f}k rays/s",
+                      flush=True)
 
-    for name in arms:  # warm both arms before any timed window
-        window(name, warmup, False)
-    for name in ("noclip", "clip", "noclip", "clip", "noclip", "clip"):
-        window(name, iters, True)
+        for name in arms:  # warm both arms before any timed window
+            window(name, warmup, False)
+        for name in ("noclip", "clip", "noclip", "clip", "noclip", "clip"):
+            window(name, iters, True)
 
     r = {n: np.asarray(arms[n]["rates"]) for n in ("clip", "noclip")}
     cost = 1.0 - np.mean(r["clip"]) / np.mean(r["noclip"])

@@ -80,16 +80,13 @@ def run(
 ) -> dict:
     """Train one variant and score deterministic PSNR/SSIM.
 
-    The step is ``atmonr_tpu_torch.bench.make_train_step`` (the batch of the
-    epoch permutation, forward with fresh draws, the config's loss,
-    backward, the config's clipped AdamW at its lr; the occupancy refresh
-    after every ``update_every``-th step, ``(step + 1) % update_every ==
-    0``). One step and one refresh run before the clock starts, so the
-    kernels' first build stays out of it. Then steps up to ``num_iters``
-    in all, a new permutation every epoch, and the config's
-    ``restart_on_plateau``: ``check_iter`` steps after each (re)start a loss
-    above the threshold re-draws the parameters, the optimizer and the
-    occupancy grid, at most ``max_restarts`` times.
+    The step is ``Trainer.step`` of a ``Trainer`` of seed ``seed`` on the
+    config's trainer block at ``batch_size`` rays and ``num_iters``
+    iterations (its schedule, progress scatter and occupancy refresh after
+    every ``update_every``-th step), on the rows ``Trainer.iterate`` would
+    take (a new permutation every epoch), with the Trainer's
+    ``restart_on_plateau`` guard after every step. The first step runs
+    before the clock starts, so the kernels' first build stays out of it.
 
     ``seconds`` switches from matched iterations to MATCHED WALL-CLOCK:
     every ``SYNC_BLOCK`` steps the device is synced and the clock read, and
@@ -99,23 +96,15 @@ def run(
     ``granule`` (``GRANULE``) with ``n_blobs`` is built on ``device``
     (``cuda`` unless given; raises when there is no card).
 
-    Seeds: parameters from ``1000 * seed``, the draws and the refreshes from
-    ``1000 * seed + 1``, the permutations from ``1000 * seed + 2``, a
-    restart's parameters from a stream of ``1000 * seed`` and ``7919 *
-    restarts``: the JAX tool's seeds, in torch's generators, so the PSNR of
-    a seed is not the JAX tool's.
-
     Returns the JAX tool's keys (``name``, ``seed``, ``iters``, ``seconds``,
     ``rays_per_s``, ``loss``, ``psnr``, ``ssim``), ``restarts``, ``eval_s``
     (the eval's seconds, metrics included) and ``device`` (the card's name
     and power limit).
     """
     from atmonr_tpu_torch import get_pipeline, load_config
-    from atmonr_tpu_torch.bench import make_train_step
-    from atmonr_tpu_torch.data.batching import epoch_permutation
     from atmonr_tpu_torch.data.harp2 import HARP2Dataset
     from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
-    from atmonr_tpu_torch.training.trainer import _stream_seed
+    from atmonr_tpu_torch.tools import batches, tool_trainer
     from atmonr_tpu_torch.utils.device import describe_device, resolve_device
 
     cfg = load_config(repo_path(path))
@@ -124,70 +113,33 @@ def run(
         dataset = HARP2Dataset(
             cfg["dataset"], make_synthetic_granule(**(granule or GRANULE), n_blobs=n_blobs),
             device=dev)
-    ds = dataset
-    opt_cfg = cfg["trainer"]["optimizer"]
-    lr = float(opt_cfg["lr"])
-    pipe = get_pipeline(cfg["pipeline"], ds, device=dev,
-                        generator=torch.Generator().manual_seed(1000 * seed))
-    rays = ds.rays(dev)
-    b = min(batch_size, ds.num_rays)
-    steps_per_epoch = max(1, ds.num_rays // b)
-    draws_gen = torch.Generator(device=dev).manual_seed(1000 * seed + 1)
-    perm_gen = torch.Generator(device=dev).manual_seed(1000 * seed + 2)
-    perm = epoch_permutation(perm_gen, ds.num_rays, b)
-    every = pipe.occ_cfg.update_every if pipe.occ_cfg is not None else 0
-
-    def fresh_optimizer():
-        opt = pipe.make_optimizer(opt_cfg, lr)
-        return opt, make_train_step(pipe, opt, rays, perm, b, draws_gen, draws_gen)
-
-    rop = cfg["trainer"].get("restart_on_plateau") or None
-    if rop:
-        rop = {
-            "check_iter": int(rop.get("check_iter", 150)),
-            "loss_threshold": float(rop.get("loss_threshold", 1.0)),
-            "max_restarts": int(rop.get("max_restarts", 3)),
-        }
-    restarts, restart_base = 0, 0
-    checks_left = bool(rop) and rop["max_restarts"] > 0
-    opt, one_iter = fresh_optimizer()
-    loss = one_iter(0)
-    if every:
-        pipe.update_aux(generator=draws_gen)
-    float(loss)
-    t0 = time.perf_counter()
-    i = 1
-    while i < num_iters:
-        loss = one_iter(i)
-        i += 1
-        if checks_left and i - restart_base == rop["check_iter"]:
-            if float(loss) > rop["loss_threshold"]:
-                restarts += 1
-                restart_base = i
-                checks_left = restarts < rop["max_restarts"]
-                print(f"  [restart {restarts} at iter {i}]", flush=True)
-                pipe.init_params(torch.Generator().manual_seed(
-                    _stream_seed(1000 * seed, 7919 * restarts)))
-                pipe.init_aux()
-                opt, one_iter = fresh_optimizer()
-            else:
-                checks_left = False  # healthy; stop checking
-        if i % steps_per_epoch == 0:
-            perm.copy_(epoch_permutation(perm_gen, ds.num_rays, b))
-        if seconds is not None and i % SYNC_BLOCK == 0:
-            float(loss)  # sync, so that the clock reads the work done
-            if time.perf_counter() - t0 >= seconds:
-                break
-    final_loss = float(loss)
-    dt = time.perf_counter() - t0
-    num_iters = i
-
-    # the AdamW moments and the gradients are dead weight in the eval (340
-    # MB of moments at 2^21)
-    del opt, one_iter
+    pipe = get_pipeline(cfg["pipeline"], dataset, device=dev)
+    with tool_trainer(cfg["trainer"], dataset, pipe, name, seed, batch_size=batch_size,
+                      num_iters=num_iters) as trainer:
+        b = trainer.batch_size
+        rows = batches(trainer)
+        running, restarts = [], 0
+        t0 = None
+        while trainer.iter_count < num_iters:
+            loss = trainer.step(next(rows))
+            running = (running + [loss])[-trainer.print_frequency:]
+            restarts += trainer.check_restart(running)
+            if t0 is None:
+                float(loss)
+                t0 = time.perf_counter()
+            elif seconds is not None and trainer.iter_count % SYNC_BLOCK == 0:
+                float(loss)  # sync, so that the clock reads the work done
+                if time.perf_counter() - t0 >= seconds:
+                    break
+        final_loss = float(loss)
+        dt = time.perf_counter() - t0
+        num_iters = trainer.iter_count
+    # the Trainer (AdamW moments, progress pixels) is dead weight in the eval
+    # (340 MB of moments at 2^21)
+    del trainer
     pipe.zero_grad(set_to_none=True)
     t_eval = time.perf_counter()
-    m = evaluate(pipe, ds, b)
+    m = evaluate(pipe, dataset, b)
     eval_s = time.perf_counter() - t_eval
     print(
         f"[{name} seed={seed}] {num_iters} iters in {dt:.1f}s "

@@ -3,17 +3,19 @@ first fraction of the iterations, then the flagship's forward for the rest:
 the counterpart of the JAX repo's ``tools/ab_q8_twophase.py``.
 
 If 8-bit training noise only perturbs the end of convergence, a short
-tail in the other forward should recover its PSNR at ~q8 speed. The
-schedule is ``ab_importance.run``'s (one step and one refresh before the
-clock, the bench's step, a new permutation every epoch; no restart check),
-and the score is the deterministic forward of the second config on the same
-float32 master weights.
+tail in the other forward should recover its PSNR at ~q8 speed. Each
+phase is a ``Trainer`` of its config, stepped as ``ab_importance.run``
+steps one (``Trainer.step``, the first step before the clock, a new
+permutation every epoch; no restart check), and the score is the
+deterministic forward of the second config on the same float32 master
+weights.
 
     python -m atmonr_tpu_torch.tools.ab_q8_twophase [hard] [switch_frac=0.8] [seed=0]
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 
@@ -30,66 +32,57 @@ def run_two_phase(first_path: str, second_path: str, num_iters: int, switch_at: 
                   n_blobs: int = 1, seed: int = 0, *,
                   device: str | torch.device | None = None, granule: dict | None = None,
                   batch_size: int = BATCH_SIZE) -> dict:
-    """Train steps ``0 .. switch_at - 1`` through ``first_path``'s pipeline and
-    the rest through ``second_path``'s, on the same parameters, optimizer
-    state and occupancy grid (handed over at the switch), then score
-    ``second_path``'s deterministic forward over every ray. The two configs
-    must differ only in their forward (their parameters have one layout).
-    Seeds as ``ab_importance.run``'s. Returns ``iters``, ``seconds``,
-    ``rays_per_s``, ``psnr``, ``ssim`` and ``device``."""
+    """Train steps ``0 .. switch_at - 1`` through a Trainer of
+    ``first_path``'s pipeline and the rest through one of ``second_path``'s,
+    the second taking over the first's parameters, occupancy grid,
+    optimizer state, random streams and step count at the switch; then
+    score ``second_path``'s deterministic forward over every ray. The two
+    configs must differ only in their forward (their parameters have one
+    layout); the trainer block is the first's. Seeds as
+    ``ab_importance.run``'s. Returns ``iters``, ``seconds``, ``rays_per_s``,
+    ``psnr``, ``ssim`` and ``device``."""
     from atmonr_tpu_torch import get_pipeline, load_config
-    from atmonr_tpu_torch.bench import make_train_step
-    from atmonr_tpu_torch.data.batching import epoch_permutation
     from atmonr_tpu_torch.data.harp2 import HARP2Dataset
     from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
+    from atmonr_tpu_torch.tools import batches, tool_trainer
     from atmonr_tpu_torch.utils.device import describe_device, resolve_device
 
     dev = resolve_device(device)
     cfgs = [load_config(repo_path(p)) for p in (first_path, second_path)]
     ds = HARP2Dataset(cfgs[0]["dataset"],
                       make_synthetic_granule(**(granule or GRANULE), n_blobs=n_blobs), device=dev)
-    opt_cfg = cfgs[0]["trainer"]["optimizer"]
-    rays = ds.rays(dev)
-    b = min(batch_size, ds.num_rays)
-    steps_per_epoch = max(1, ds.num_rays // b)
-    draws_gen = torch.Generator(device=dev).manual_seed(1000 * seed + 1)
-    perm_gen = torch.Generator(device=dev).manual_seed(1000 * seed + 2)
-    perm = epoch_permutation(perm_gen, ds.num_rays, b)
-    phases = []
-    for c in cfgs:
-        pipe = get_pipeline(c["pipeline"], ds, device=dev,
-                            generator=torch.Generator().manual_seed(1000 * seed))
-        opt = pipe.make_optimizer(opt_cfg, float(opt_cfg["lr"]))
-        phases.append((pipe, opt, make_train_step(pipe, opt, rays, perm, b, draws_gen,
-                                                  draws_gen)))
+    with contextlib.ExitStack() as stack:
+        first, second = (
+            stack.enter_context(tool_trainer(cfgs[0]["trainer"], ds,
+                                             get_pipeline(c["pipeline"], ds, device=dev),
+                                             name, seed, batch_size=batch_size,
+                                             num_iters=num_iters))
+            for name, c in zip(("first", "second"), cfgs))
 
-    def switch() -> None:
-        (p0, o0, _), (p1, o1, _) = phases
-        p1.load_params(dict(p0.named_parameters()))
-        if p0.occ_cfg is not None:
-            p1.occ.copy_(p0.occ)
-        o1.load_state_dict(o0.state_dict())
+        def switch() -> None:
+            p0, p1 = first.pipeline, second.pipeline
+            p1.load_params(dict(p0.named_parameters()))
+            if p0.occ_cfg is not None:
+                p1.occ.copy_(p0.occ)
+            second.optimizer.load_state_dict(first.optimizer.state_dict())
+            second.generators, second.iter_count = first.generators, first.iter_count
 
-    cur = 0 if switch_at > 0 else 1
-    pipe, _, one_iter = phases[cur]
-    loss = one_iter(0)
-    if pipe.occ_cfg is not None:
-        pipe.update_aux(generator=draws_gen)
-    float(loss)
-    t0 = time.perf_counter()
-    for i in range(1, num_iters):
-        if cur == 0 and i >= switch_at:
+        rows = batches(first)  # the streams go on in the second
+        cur, t0 = first, None
+        while cur.iter_count < num_iters:
+            if cur is first and cur.iter_count >= switch_at:
+                switch()
+                cur = second
+            loss = cur.step(next(rows))
+            if t0 is None:
+                float(loss)  # the kernels' first build stays outside the clock
+                t0 = time.perf_counter()
+        float(loss)
+        dt = time.perf_counter() - t0
+        if cur is first:
             switch()
-            cur = 1
-        loss = phases[cur][2](i)
-        if (i + 1) % steps_per_epoch == 0:
-            perm.copy_(epoch_permutation(perm_gen, ds.num_rays, b))
-    float(loss)
-    dt = time.perf_counter() - t0
-    if cur == 0:
-        switch()
-    scorer = phases[1][0]
-    phases.clear()  # the optimizers' moments are dead weight in the eval
+        b, scorer = second.batch_size, second.pipeline
+    del first, second, cur  # the optimizers' moments are dead weight in the eval
     m = evaluate(scorer, ds, b)
     return {"iters": num_iters, "seconds": round(dt, 2),
             "rays_per_s": round(num_iters * b / dt, 1), "psnr": float(m["PSNR_mean"]),

@@ -9,7 +9,8 @@ micro-batches), so that work at 2^21 lands where the milliseconds are:
     pipeline_fwd    the stochastic forward and the loss
     encode_bwd      the hash-table gradient of a cotangent of ones (K1, K2)
     full_grad       forward, loss and backward
-    train_step      the gradient and the clipped AdamW update
+    train_step      ``Trainer.step`` on the config's trainer block, at the
+                    whole batch
 
 ``encode_fwd``, ``full_grad`` and ``train_step`` are ``profile_step``'s
 stages. Each is timed by the host's clock over ``iters`` calls between two
@@ -35,10 +36,11 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     """Prints a line a stage and returns the seconds of each; ``device`` is
     ``cuda`` unless given."""
     from atmonr_tpu_torch import get_pipeline, load_config
-    from atmonr_tpu_torch.data.batching import batch_at_step, epoch_permutation
+    from atmonr_tpu_torch.data.batching import gather_batch
     from atmonr_tpu_torch.data.harp2 import HARP2Dataset
     from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
     from atmonr_tpu_torch.models.hash_grid import hash_encode
+    from atmonr_tpu_torch.tools import batches, tool_trainer
     from atmonr_tpu_torch.utils.device import describe_device, resolve_device
 
     batch_size, iters = 8192, 5
@@ -59,13 +61,8 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     cfg = load_config(repo_path(config_path))
     ds = HARP2Dataset(cfg["dataset"], make_synthetic_granule(
         **(granule or {"height": 96, "width": 48, "views_per_band": 2})), device=dev)
-    pipe = get_pipeline(cfg["pipeline"], ds, device=dev,
-                        generator=torch.Generator().manual_seed(0))
-    rays = ds.rays(dev)
+    pipe = get_pipeline(cfg["pipeline"], ds, device=dev)
     batch_size = min(batch_size, ds.num_rays)
-    perm = epoch_permutation(torch.Generator(device=dev).manual_seed(1), ds.num_rays,
-                             batch_size)
-    batch = batch_at_step(rays, perm, 0, batch_size)
     occ = pipe.occ_cfg
     n_samples = int(occ.n_fine if occ else cfg["pipeline"]["num_samples_per_ray"])
     m = batch_size * n_samples
@@ -78,8 +75,6 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     x = torch.rand((m, cfg3.n_dims), generator=torch.Generator(device=dev).manual_seed(2),
                    device=dev)
     draws = pipe.make_draws(batch_size, torch.Generator(device=dev).manual_seed(3))
-    opt = pipe.make_optimizer(cfg["trainer"]["optimizer"], 1e-2)
-    fns = stage_fns(pipe, opt, batch, draws, x)
     rows = m * cfg3.n_levels * (1 << cfg3.n_dims)
     times = {}
 
@@ -87,25 +82,30 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
         times[name] = wall_s(fn, dev, iters, 1)
         print(f"{name:14s} {times[name] * 1e3:9.1f} ms/iter", flush=True)
 
-    if stages == "all":
-        timeit("encode_fwd", fns["encode_fwd"])
-        print(f"  -> {rows / times['encode_fwd'] / 1e6:.0f} M corner-gathers/s", flush=True)
+    with tool_trainer(cfg["trainer"], ds, pipe, "diag_ref_capacity", batch_size=batch_size,
+                      micro_batch_size=0) as tr:
+        idx = next(batches(tr))
+        fns = stage_fns(tr, idx, draws, x)
+        if stages == "all":
+            timeit("encode_fwd", fns["encode_fwd"])
+            print(f"  -> {rows / times['encode_fwd'] / 1e6:.0f} M corner-gathers/s", flush=True)
+            batch = gather_batch(tr.rays, idx)
 
-        def pipeline_fwd():
-            with torch.no_grad():
-                return pipe.compute_loss(batch, pipe(batch, draws=draws))
+            def pipeline_fwd():
+                with torch.no_grad():
+                    return pipe.compute_loss(batch, pipe(batch, draws=draws))
 
-        timeit("pipeline_fwd", pipeline_fwd)
-        table = pipe.pos_table
-        g = torch.ones((m, cfg3.n_output_dims), device=dev)
+            timeit("pipeline_fwd", pipeline_fwd)
+            table = pipe.pos_table
+            g = torch.ones((m, cfg3.n_output_dims), device=dev)
 
-        def encode_bwd():
-            return torch.autograd.grad(hash_encode(table, x, cfg3), table, g)
+            def encode_bwd():
+                return torch.autograd.grad(hash_encode(table, x, cfg3), table, g)
 
-        timeit("encode_bwd", encode_bwd)
-        print(f"  -> {rows / times['encode_bwd'] / 1e6:.0f} M contributions/s", flush=True)
-        timeit("full_grad", fns["grad"])
-    timeit("train_step", fns["step"])
+            timeit("encode_bwd", encode_bwd)
+            print(f"  -> {rows / times['encode_bwd'] / 1e6:.0f} M contributions/s", flush=True)
+            timeit("full_grad", fns["grad"])
+        timeit("train_step", fns["step"])
     print(f"  -> {batch_size / times['train_step']:.0f} rays/s", flush=True)
     return times
 

@@ -13,9 +13,9 @@ degrees, all resident on the device. End to end:
    installed);
 2. the dataset (the host library's ray build, the filter, the
    normalization), its ray count and the ray store's size;
-3. the flagship's train step (``bench.make_train_step``) at 8,192 rays:
-   59 warm steps, then the timed steps; steady rays/s and peak device
-   memory;
+3. the flagship's train step (``Trainer.step``, seed 0, the config's
+   trainer block) at 8,192 rays: the first step, 59 warm steps, then the
+   timed steps; steady rays/s and peak device memory;
 4. a coarse voxelgrid extraction (20 km / 2 km, no DEM) through ``run_extraction``,
    written as netCDF under ``source=file`` only (the writer needs h5py).
 
@@ -100,8 +100,7 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     a small granule. ``keep``, a dict, receives the dataset, the pipeline
     and the extraction grid for a caller that goes on with them."""
     from atmonr_tpu_torch import get_extract_dataset, get_pipeline, load_config, run_extraction
-    from atmonr_tpu_torch.bench import make_train_step
-    from atmonr_tpu_torch.data.batching import epoch_permutation
+    from atmonr_tpu_torch.tools import batches, tool_trainer
     from atmonr_tpu_torch.utils.device import describe_device, resolve_device
     from atmonr_tpu_torch.utils.timing import fence
 
@@ -144,31 +143,25 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
               f"({report['ray_store_mb']} MB) built in {report['dataset_build_s']}s",
               flush=True)
 
-        pipe = get_pipeline(cfg["pipeline"], ds, device=dev,
-                            generator=torch.Generator().manual_seed(0))
-        opt = pipe.make_optimizer(cfg["trainer"]["optimizer"],
-                                  float(cfg["trainer"]["optimizer"]["lr"]))
-        b = min(batch_size, ds.num_rays)
-        gen = {k: torch.Generator(device=dev).manual_seed(s)
-               for k, s in (("draws", 1), ("perm", 2))}
-        perm = epoch_permutation(gen["perm"], ds.num_rays, b)
-        one_iter = make_train_step(pipe, opt, ds.rays(dev), perm, b, gen["draws"], gen["draws"])
-        t0 = time.perf_counter()
-        loss = one_iter(0)
-        if pipe.occ_cfg is not None:
-            pipe.update_aux(generator=gen["draws"])
-        float(loss)
-        report["compile_s"] = round(time.perf_counter() - t0, 1)  # the kernels' builds
-        for i in range(1, 1 + warm_steps):
-            loss = one_iter(i)
-        float(loss)
-        t0 = time.perf_counter()
-        for i in range(1 + warm_steps, 1 + warm_steps + steps):
-            loss = one_iter(i)
-        report["final_loss"] = float(loss)  # fences the queue
-        dt = (time.perf_counter() - t0) / steps
+        pipe = get_pipeline(cfg["pipeline"], ds, device=dev)
+        with tool_trainer(cfg["trainer"], ds, pipe, "real_scale", batch_size=batch_size) as tr:
+            rows = batches(tr)
+            t0 = time.perf_counter()
+            loss = tr.step(next(rows))
+            float(loss)
+            report["compile_s"] = round(time.perf_counter() - t0, 1)  # the kernels' builds
+            for _ in range(warm_steps):
+                loss = tr.step(next(rows))
+            float(loss)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = tr.step(next(rows))
+            report["final_loss"] = float(loss)  # fences the queue
+            dt = (time.perf_counter() - t0) / steps
+            report["device_memory"] = device_memory(dev)
+            b, n_steps = tr.batch_size, tr.iter_count
+        del tr
         report["steady_rays_per_s"] = round(b / dt, 1)
-        report["device_memory"] = device_memory(dev)
         print(f"[3] training steady state: {report['steady_rays_per_s']:.0f} rays/s over "
               f"{steps} steps (loss {report['final_loss']:.4f}); device memory "
               f"{report['device_memory']}", flush=True)
@@ -196,7 +189,7 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
         if not np.all(np.isfinite(sigma)):
             raise RuntimeError("the extraction's sigma is not finite")
         if keep is not None:
-            keep.update(dataset=ds, pipeline=pipe, grid=ex, steps=1 + warm_steps + steps)
+            keep.update(dataset=ds, pipeline=pipe, grid=ex, steps=n_steps)
     print(json.dumps(report), flush=True)
     return report
 

@@ -20,11 +20,11 @@ the JAX tool's deterministic eval:
     eps       AdamW eps -> 1e-8
     lr        lr -> 3e-3
 
-- ``init``: ``port`` draws the parameters from this package's generator
-  (seed ``1000 * seed``, as ``ab_importance.run``); ``jax`` takes the JAX
-  package's ``init_params(PRNGKey(1000 * seed))`` bit for bit
-  (``convert.jax_ngp_init``). The draws and the permutations come from the
-  device generators of ``ab_importance.run`` either way.
+- ``init``: ``port`` draws the parameters from the Trainer's init stream
+  (a ``Trainer`` of seed ``seed``, as ``ab_importance.run``); ``jax`` takes
+  the JAX package's ``init_params(PRNGKey(1000 * seed))`` bit for bit
+  (``convert.jax_ngp_init``). The draws, the refresh jitter and the
+  permutations come from the Trainer's streams either way.
 - ``products``: the MLP products in ``bf16`` as the pipeline runs them
   (PyTorch's default lets cuBLAS reduce split-K partial sums in bf16),
   ``bf16_f32reduce`` (bf16 with
@@ -35,9 +35,11 @@ the JAX tool's deterministic eval:
 - ``gemms=1`` profiles one train step and prints the matrix-product
   kernels it launched (cuBLAS picks split-K by a heuristic).
 
-The step and the streams are ``ab_importance.run``'s (``bench.make_train_step``:
-the occupancy refresh after every ``update_every``-th step, one more after
-the first step). A cell's outcome is the guard's (``restart_on_plateau``):
+The step is ``Trainer.step`` on the config's trainer block, the optimizer
+as ``mode`` sets it (the occupancy refresh after every ``update_every``-th
+step), on the rows ``Trainer.iterate`` would take; the guard does not
+restart a cell. The branch norms are summed from gradient hooks on the
+parameters, before the clip. A cell's outcome is the guard's (``restart_on_plateau``):
 collapsed when the mean of the last 5 losses at step 150 exceeds 1.0.
 Rows append to ``out`` (JSONL, each with the device's name and power
 limit); with several seeds the run ends with its collapse count and the
@@ -49,6 +51,7 @@ Runs on ``cuda`` unless ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import sys
@@ -167,70 +170,65 @@ def _optimizer_config(cfg: dict, mode: str) -> dict:
 
 
 class _Cell:
-    """One cell's pipeline, optimizer, streams and step."""
+    """One cell: its Trainer, the rows of its steps and the squared branch
+    gradient norms of the step in flight."""
 
-    def __init__(self, cfg: dict, dataset, seed: int, init: str, mode: str,
-                 batch_size: int, device: torch.device) -> None:
-        from atmonr_tpu_torch import convert, get_pipeline
-        from atmonr_tpu_torch.data.batching import epoch_permutation
+    def __init__(self, trainer) -> None:
+        from atmonr_tpu_torch.tools import batches
 
-        if init not in INITS:
-            raise ValueError(f"init must be one of {INITS}, not {init!r}")
-        self.pipe = pipe = get_pipeline(cfg["pipeline"], dataset, device=device,
-                                        generator=torch.Generator().manual_seed(1000 * seed))
-        if init == "jax":
-            pipe.load_params(convert.params_from_jax(convert.jax_ngp_init(cfg["pipeline"], 1000 * seed)))
-        opt_cfg = _optimizer_config(cfg, mode)
-        self.opt = pipe.make_optimizer(opt_cfg, float(opt_cfg["lr"]))
-        self.rays = dataset.rays(device)
-        self.b = min(batch_size, dataset.num_rays)
-        self.n_rays = dataset.num_rays
-        self.steps_per_epoch = max(1, dataset.num_rays // self.b)
-        self.draws_gen = torch.Generator(device=device).manual_seed(1000 * seed + 1)
-        self.perm_gen = torch.Generator(device=device).manual_seed(1000 * seed + 2)
-        self.perm = epoch_permutation(self.perm_gen, dataset.num_rays, self.b)
-        self.every = pipe.occ_cfg.update_every if pipe.occ_cfg is not None else 0
-        named = list(pipe.named_parameters())
-        self.params = [p for _, p in named]
-        self.group = torch.tensor([BRANCHES.index(n.split(".")[0]) for n, _ in named], device=device)
+        self.trainer = trainer
+        self.pipe = pipe = trainer.pipeline
+        self.rows = batches(trainer)
+        self.sq = torch.zeros(len(BRANCHES), device=pipe.device)
+        for name, p in pipe.named_parameters():
+            p.register_hook(functools.partial(self._add, BRANCHES.index(name.split(".")[0])))
 
-    def step(self, i: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Train step ``i``: (loss, the five branch gradient norms before the
-        clip), both on the device."""
-        from atmonr_tpu_torch.data.batching import batch_at_step, epoch_permutation
+    def _add(self, branch: int, grad: torch.Tensor) -> None:
+        self.sq[branch] += torch.linalg.vector_norm(grad) ** 2
 
-        pipe = self.pipe
-        batch = batch_at_step(self.rays, self.perm, i % self.steps_per_epoch, self.b)
-        draws = pipe.make_draws(self.b, self.draws_gen)
-        self.opt.zero_grad()
-        loss = pipe.compute_loss(batch, pipe(batch, draws=draws))
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        sq = torch.stack(torch._foreach_norm(grads)) ** 2
-        norms = torch.zeros(len(BRANCHES), device=sq.device).index_add_(0, self.group, sq).sqrt()
-        self.opt.step()
-        if self.every and ((i + 1) % self.every == 0 or i == 0):
-            pipe.update_aux(generator=self.draws_gen)
-        if (i + 1) % self.steps_per_epoch == 0:
-            self.perm.copy_(epoch_permutation(self.perm_gen, self.n_rays, self.b))
-        return loss.detach(), norms
+    def step(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """One ``Trainer.step``: (loss, the five branch gradient norms before
+        the clip), both on the device."""
+        self.sq.zero_()
+        loss = self.trainer.step(next(self.rows))
+        return loss, self.sq.sqrt()
 
     def pmax(self) -> torch.Tensor:
         return torch.maximum(self.pipe.pos_table.detach().abs().max(),
                              self.pipe.pos_mlp.layers[0].weight.detach().abs().max())
 
 
-def gemm_kernels(cell: _Cell, products: str) -> list[tuple[str, int, float]]:
+@contextlib.contextmanager
+def cell(cfg: dict, dataset, seed: int, init: str, mode: str, num_iters: int,
+         batch_size: int, device: torch.device):
+    """A ``_Cell`` of the config on ``dataset``: a Trainer of seed ``seed``
+    at ``batch_size`` rays and ``num_iters`` iterations, the optimizer as
+    ``mode`` sets it, the init as ``init`` says."""
+    from atmonr_tpu_torch import convert, get_pipeline
+    from atmonr_tpu_torch.tools import tool_trainer
+
+    if init not in INITS:
+        raise ValueError(f"init must be one of {INITS}, not {init!r}")
+    pipe = get_pipeline(cfg["pipeline"], dataset, device=device)
+    with tool_trainer(cfg["trainer"], dataset, pipe, "collapse", seed, batch_size=batch_size,
+                      num_iters=num_iters, optimizer=_optimizer_config(cfg, mode)) as tr:
+        if init == "jax":
+            pipe.load_params(convert.params_from_jax(
+                convert.jax_ngp_init(cfg["pipeline"], 1000 * seed)))
+        yield _Cell(tr)
+
+
+def gemm_kernels(c: _Cell, products: str) -> list[tuple[str, int, float]]:
     """(kernel name, calls, device us) of the matrix-product kernels of one
     train step under ``products``: the names say whether cuBLAS split K."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cell.pipe.device.type == "cuda" else [])
-    with products_setting(cell.pipe, products):
-        cell.step(0)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if c.pipe.device.type == "cuda" else [])
+    with products_setting(c.pipe, products):
+        c.step()
         with profile(activities=acts) as prof:
-            cell.step(1)
-            if cell.pipe.device.type == "cuda":
+            c.step()
+            if c.pipe.device.type == "cuda":
                 torch.cuda.synchronize()
     words = ("gemm", "splitk", "split_k", "reduce_kernel", "xmma", "cutlass", "matmul", "addmm", "mm")
     rows = []
@@ -249,21 +247,21 @@ def run_cell(cfg: dict, dataset, seed: int, *, init: str = "port", products: str
     branch norms of the first ``BRANCH_STEPS`` steps, PSNR/SSIM)."""
     from atmonr_tpu_torch.tools.ab_importance import evaluate as score
 
-    cell = _Cell(cfg, dataset, seed, init, mode, batch_size, device)
     tag = f"[{mode} seed={seed} init={init} products={products}]"
     losses = torch.zeros(num_iters, device=device)
     norms = torch.zeros((num_iters, len(BRANCHES)), device=device)
     trace, lo = [], float("inf")
-    with products_setting(cell.pipe, products):
+    with cell(cfg, dataset, seed, init, mode, num_iters, batch_size, device) as c, \
+            products_setting(c.pipe, products):
         t0 = time.perf_counter()
         i = 0
         while i < num_iters:
-            losses[i], norms[i] = cell.step(i)
+            losses[i], norms[i] = c.step()
             if i == 0:
                 float(losses[0])  # the kernels' first build stays outside the clock
                 t0 = time.perf_counter()
             if i % TRACE_EVERY == 0 or i == num_iters - 1:
-                l, g, p = (float(v) for v in (losses[i], norms[i].square().sum().sqrt(), cell.pmax()))
+                l, g, p = (float(v) for v in (losses[i], norms[i].square().sum().sqrt(), c.pmax()))
                 lo = min(lo, l)
                 flag = "  <-- SPIKE" if l > 10 * lo and l > 1e-3 else ""
                 print(f"iter {i:5d} loss {l:10.5f} gnorm {g:10.3f} pmax {p:8.3f}{flag}", flush=True)
@@ -275,9 +273,10 @@ def run_cell(cfg: dict, dataset, seed: int, *, init: str = "port", products: str
         dt = time.perf_counter() - t0
         losses_h = losses[:i].cpu().numpy().astype(np.float64)
         norms_h = norms[:i].cpu().numpy().astype(np.float64)
-        cell.opt = None
-        cell.pipe.zero_grad(set_to_none=True)
-        m = score(cell.pipe, dataset, cell.b)
+        pipe, b = c.pipe, c.trainer.batch_size
+        c.trainer.optimizer = None  # the AdamW moments are dead weight in the eval
+        pipe.zero_grad(set_to_none=True)
+        m = score(pipe, dataset, b)
     first = norms_h[:BRANCH_STEPS]
     print(f"{tag} branch gradient norms, steps 1-{len(first)} ("
           + ", ".join(BRANCHES) + "):", flush=True)
@@ -358,12 +357,11 @@ def main(argv: list[str] | None = None, *, device: str | torch.device | None = N
     out.parent.mkdir(parents=True, exist_ok=True)
     init, products = opts["init"], opts["products"]
     if opts["gemms"]:
-        cell = _Cell(cfg, dataset, 0, init, opts["mode"], batch_size, dev)
-        print(f"[gemms] init={init} products={products}: matrix-product kernels of one step "
-              "(name, calls, device us):", flush=True)
-        for kname, calls, us in gemm_kernels(cell, products):
-            print(f"  {kname[:160]} | {calls} | {us:.1f}", flush=True)
-        del cell
+        with cell(cfg, dataset, 0, init, opts["mode"], 2, batch_size, dev) as c:
+            print(f"[gemms] init={init} products={products}: matrix-product kernels of one "
+                  "step (name, calls, device us):", flush=True)
+            for kname, calls, us in gemm_kernels(c, products):
+                print(f"  {kname[:160]} | {calls} | {us:.1f}", flush=True)
     rows = []
     for seed in opts["seeds"]:
         row = run_cell(cfg, dataset, seed, init=init, products=products, mode=opts["mode"],

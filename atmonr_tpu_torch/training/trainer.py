@@ -526,6 +526,29 @@ class Trainer:
         self._print(line + max(0, self._last_len - len(line)) * " ", end="\r")
         self._last_len = len(line)
 
+    def check_restart(self, running: list[torch.Tensor]) -> bool:
+        """The ``restart_on_plateau`` guard, after a step: ``check_iter``
+        steps after the run's (re)start, a mean of the last 5 losses of
+        ``running`` above ``loss_threshold`` re-draws the init, at most
+        ``max_restarts`` times. Returns whether it did. It fetches the loss
+        at that step only."""
+        rop = self.restart_on_plateau
+        if (
+            rop is None
+            or self._restarts >= rop["max_restarts"]
+            or self.iter_count - self._restart_base != rop["check_iter"]
+        ):
+            return False
+        recent = float(torch.mean(torch.stack(running[-5:])))
+        if not recent > rop["loss_threshold"]:
+            # a healthy run stays healthy (the collapse is an init
+            # phenomenon); stop checking
+            self._restarts = rop["max_restarts"]
+            return False
+        self._reinit_for_restart(recent)
+        self._restart_base = self.iter_count
+        return True
+
     def _reinit_for_restart(self, recent_loss: float) -> None:
         """Re-draw the init after a detected collapse. The iteration budget
         keeps counting: a restart costs the iterations already spent."""
@@ -575,7 +598,6 @@ class Trainer:
             prof = profiling.enter_context(torch_profile(activities=activities))
             # the steps' spans, as ranges over their kernels in the trace
             profiling.enter_context(spans.recording())
-        rop = self.restart_on_plateau
 
         with profiling:  # a loop left early stops the profiler too
             while self.iter_count < self.num_iters:
@@ -588,19 +610,7 @@ class Trainer:
                     # exactly the last print_frequency losses, so each block
                     # mean averages its own block only
                     running = (running + [loss])[-self.print_frequency :]
-                    if (
-                        rop is not None
-                        and self._restarts < rop["max_restarts"]
-                        and self.iter_count - self._restart_base == rop["check_iter"]
-                    ):
-                        recent = float(torch.mean(torch.stack(running[-5:])))
-                        if recent > rop["loss_threshold"]:
-                            self._reinit_for_restart(recent)
-                            self._restart_base = self.iter_count
-                        else:
-                            # a healthy run stays healthy (the collapse is an
-                            # init phenomenon); stop checking
-                            self._restarts = rop["max_restarts"]
+                    self.check_restart(running)
                     yield self.iter_count
                     if self.iter_count % self.print_frequency == 0:
                         if prev_block is not None:

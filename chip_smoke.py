@@ -2340,11 +2340,10 @@ def phase_tools(ctx: dict, card: str, rows: list[dict]) -> dict:
 
 
 def _cell_counts(mode: str, iters: int, refresh_every: int, slices: int) -> dict:
-    """The launches of one ``ab_importance.run`` cell: ``iters`` steps, one
-    refresh before the clock and one after every ``refresh_every``-th step
-    (none without a grid), and the eval's ``slices`` deterministic
-    forwards."""
-    refreshes = 1 + iters // refresh_every if refresh_every else 0
+    """The launches of one ``ab_importance.run`` cell: ``iters`` steps, the
+    Trainer's refresh after every ``refresh_every``-th step (none without a
+    grid), and the eval's ``slices`` deterministic forwards."""
+    refreshes = iters // refresh_every if refresh_every else 0
     return step_counts(mode, iters, k1_d3_extra=refreshes + slices, k1_d2_extra=slices)
 
 
@@ -2436,7 +2435,7 @@ def phase_quality(ctx: dict, card: str, rows: list[dict]) -> dict:
         f"{demo['extract_s']} s, on {card}")
     n_extract = -(-demo["extract_points"] // BATCH)
     want_demo = step_counts("q8", keep["steps"],
-                            k1_d3_extra=1 + keep["steps"] // every + n_extract)
+                            k1_d3_extra=keep["steps"] // every + n_extract)
     if launched(after_demo) != want_demo:
         raise RuntimeError(f"[real scale] launches: {show(after_demo)}; expected {show(want_demo)}")
     log(f"[real scale] launches of the demo: {show(after_demo)}")

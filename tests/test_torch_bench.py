@@ -1,19 +1,20 @@
 """The port's headline bench (``atmonr_tpu_torch/bench.py``) against the
 JAX repo's ``bench.py``, on the CPU.
 
-Four steps of the bench's step (``make_train_step``) against the same
-composition of the JAX package's pieces as ``bench.py``'s ``train_step`` and
-``maybe_refresh_occ``: ``batch_at_step`` over the rays, the forward with
-the draws of ``fold_in(PRNGKey(2), step)``, ``compute_loss``,
-``value_and_grad``, the pipeline's ``make_optimizer`` at a constant lr of
-1e-2, and the occupancy refresh every ``update_every`` steps with the
-jitter of ``fold_in(PRNGKey(3), step)``. Both start from the same
-parameters (``convert.params_from_jax``) and occupancy grid, take the same
-permutation and the same draws: ``tests/test_torch_train.py``'s ``pair``
-fixture (the small config, float32 MLP products, ``"xla"`` and ``"q8"``)
-and ``_jax_draws``, at that file's tolerances for a few Trainer steps
-(stated on each test). Then ``main`` on the CPU at a tiny size prints
-``bench.py``'s JSON line.
+Four steps of the bench's step (``Trainer.step`` on the bench's trainer
+block, ``bench.trainer_config``) against the same composition of the JAX
+package's pieces as ``bench.py``'s ``train_step`` and ``maybe_refresh_occ``:
+``batch_at_step`` over the rays, the forward with the draws of
+``fold_in(PRNGKey(2), step)``, ``compute_loss``, ``value_and_grad``, the
+pipeline's ``make_optimizer`` at a constant lr of 1e-2, and the occupancy
+refresh every ``update_every`` steps with the jitter of
+``fold_in(PRNGKey(3), step)``. Both start from the same parameters
+(``convert.params_from_jax``, loaded into the Trainer's pipeline) and
+occupancy grid, take the same rows and the same draws:
+``tests/test_torch_train.py``'s ``pair`` fixture (the small config, float32
+MLP products, ``"xla"`` and ``"q8"``) and ``_jax_draws``, at that file's
+tolerances for a few Trainer steps (stated on each test). Then ``main`` on
+the CPU at a tiny size prints ``bench.py``'s JSON line.
 """
 
 import json
@@ -26,29 +27,30 @@ import pytest
 import torch
 
 from atmonr_tpu.data import batching as jbatching
-from atmonr_tpu_torch import bench, convert
+from atmonr_tpu_torch import Trainer, bench, convert
 from test_torch_pipeline import N_RAYS
-from test_torch_train import OPTIMIZER, _jax_draws, _t, pair  # noqa: F401  (a fixture)
+from test_torch_train import OPTIMIZER, _jax_draws, _t, _trainer_config, pair  # noqa: F401
 
 N_STEPS = 4
 LR = 1e-2
 
 
 @pytest.fixture(scope="module")
-def bench_run(pair):  # noqa: F811
+def bench_run(pair, tmp_path_factory):  # noqa: F811
     jpipe, tpipe, tds = pair["jpipe"], pair["tpipe"], pair["tds"]
     params, aux = pair["params"], pair["aux"]
     every = jpipe.occ_cfg.update_every
     assert every == 2 and tpipe.occ_cfg.update_every == every
     perm = np.random.default_rng(8).permutation(len(tds))[: 2 * N_RAYS]
-    host = tds.host_rays()
-    jrays = {k: jnp.asarray(v) for k, v in host.items()}
-    trays = {k: _t(v) for k, v in host.items()}
+    jrays = {k: jnp.asarray(v) for k, v in tds.host_rays().items()}
 
     jopt = jpipe.make_optimizer(OPTIMIZER, LR)
     opt_state = jopt.init(params)
-    topt = tpipe.make_optimizer(OPTIMIZER, LR)
-    one_iter = bench.make_train_step(tpipe, topt, trays, torch.from_numpy(perm), N_RAYS)
+    state = {k: v.clone() for k, v in tpipe.state_dict().items()}  # parameters and grid
+    trainer = Trainer(bench.trainer_config(_trainer_config(), N_RAYS), tds, tpipe, "bench",
+                      tmp_path_factory.mktemp("bench"), device="cpu")
+    tpipe.load_state_dict(state)
+    assert trainer.batch_size == N_RAYS and not trainer.progress
     spe = len(perm) // N_RAYS
 
     @jax.jit
@@ -75,7 +77,9 @@ def bench_run(pair):  # noqa: F811
 
         draws = {k: _t(v) for k, v in _jax_draws(key, jpipe, params, N_RAYS).items()}
         jitter = _t(jax.random.uniform(k_aux, (jpipe.occ_cfg.num_cells, 3)))
-        tloss = one_iter(step, draws=draws, aux_jitter=jitter)
+        slot = step % spe
+        tloss = trainer.step(torch.from_numpy(perm[slot * N_RAYS : (slot + 1) * N_RAYS]),
+                             draws=draws, aux_jitter=jitter)
         steps.append({
             "jloss": float(jloss), "tloss": float(tloss),
             "jgrads": convert.params_from_jax(jgrads),
@@ -83,7 +87,7 @@ def bench_run(pair):  # noqa: F811
             "tparams": {k: v.detach().clone() for k, v in tpipe.named_parameters()},
             "jocc": np.asarray(aux["occ"]), "tocc": tpipe.occ.clone().numpy(),
         })
-    return {"steps": steps, "optimizer": topt}
+    return {"steps": steps, "optimizer": trainer.optimizer}
 
 
 def test_bench_step_losses_match_jax(bench_run):

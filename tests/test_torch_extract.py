@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax_native import jax_native_library  # noqa: F401  (an autouse fixture)
 from atmonr_tpu.data.synthetic import (
     write_granule_l1c,
     write_synthetic_dem,

@@ -22,6 +22,7 @@ from atmonr_tpu.data.harp2 import HARP2Dataset as JaxHARP2Dataset
 from atmonr_tpu.data.synthetic import make_synthetic_granule as jax_granule
 from atmonr_tpu.models import hash_grid as jhg
 from _torch_threads import one_torch_thread
+from _torch_jax_native import jax_native_library  # noqa: F401  (an autouse fixture)
 from atmonr_tpu_torch import graft_entry
 from test_torch_pipeline import _share_preprocessor
 

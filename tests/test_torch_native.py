@@ -7,13 +7,16 @@ keys of the walked rows, the dataset's default ray builder and global grid
 built through it, and a build that fails raising with no numpy fallback.
 
 ``g++`` builds the library at first use into ``atmonr_tpu_torch/_build/``
-(under a second of compile; the test workers share the built file)."""
+(under a second of compile; the test workers share the built file). The
+JAX package's library is built and loaded first (``_torch_jax_native``)."""
 
 import threading
 
 import numpy as np
 import pytest
 
+import _torch_jax_native
+from _torch_jax_native import jax_native_library  # noqa: F401  (an autouse fixture)
 from atmonr_tpu import native as jnative
 from atmonr_tpu.data.harp2 import HARP2Dataset as JaxHARP2Dataset
 from atmonr_tpu.data.synthetic import make_synthetic_granule
@@ -192,30 +195,33 @@ def test_empty_and_malformed_inputs():
 # -- against the JAX package's library ---------------------------------------------
 
 
-def _jax_library():
-    if not jnative.available():
-        pytest.skip("the JAX package's native library is not built here")
-    return jnative
+def test_the_jax_library_loads_again_after_a_fallback(monkeypatch):
+    """A process whose first load fell back to numpy (the library not yet
+    whole) loads it once the helper has built it."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_lib_tried", True)
+    assert not jnative.available()
+    _torch_jax_native.build()
+    assert jnative.available() and jnative._lib is not None
 
 
 @pytest.mark.parametrize("entry", ["build_rays", "h2c", "c2h", "voxel_traversal"])
 def test_equal_to_the_jax_packages_library(entry):
     """The same arithmetic under the same flags on the same machine: equal
     bit for bit."""
-    jn = _jax_library()
     lat, lon, alt, thetav, phiv = _inputs(seed=5)
     if entry == "build_rays":
         pairs = zip(native.build_rays(lat, lon, alt, thetav, phiv, 20000.0),
-                    jn.build_rays(lat, lon, alt, thetav, phiv, 20000.0))
+                    jnative.build_rays(lat, lon, alt, thetav, phiv, 20000.0))
     elif entry == "h2c":
         pairs = zip(native.horizontal_to_cartesian(lat, lon, alt),
-                    jn.horizontal_to_cartesian(lat, lon, alt))
+                    jnative.horizontal_to_cartesian(lat, lon, alt))
     elif entry == "c2h":
         xyz = wgs84.horizontal_to_cartesian(lat, lon, alt)
-        pairs = zip(native.cartesian_to_horizontal(*xyz), jn.cartesian_to_horizontal(*xyz))
+        pairs = zip(native.cartesian_to_horizontal(*xyz), jnative.cartesian_to_horizontal(*xyz))
     else:
         u, end = _segments("degenerate")
-        pairs = zip(native.voxel_traversal(u, end), jn.voxel_traversal(u, end))
+        pairs = zip(native.voxel_traversal(u, end), jnative.voxel_traversal(u, end))
     for got, want in pairs:
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
@@ -224,7 +230,6 @@ def test_equal_to_the_jax_packages_library(entry):
 def test_datasets_default_builders_agree_with_the_jax_package():
     """Both packages' default builders are their host libraries: the same
     rays; the port's numpy builder within the solver's 25 m."""
-    _jax_library()
     config = _config("xla")
     granule = make_synthetic_granule(height=16, width=8, views_per_band=2)
     tds = get_dataset(config["dataset"], SCENE, device="cpu")

@@ -12,10 +12,10 @@ and the tools built on it, on the CPU.
   in interpret mode). Per-ray predictions agree to rtol 1e-4 + 1e-6 of the
   largest (float32 sums in other orders), so PSNR to 1e-3 dB and SSIM to
   1e-5.
-- ``run``'s control flow, with the step and the clock observed: the
-  iteration count, the restart count and what a restart re-draws, the
-  epoch permutations, and the stop at the first ``SYNC_BLOCK`` edge past
-  the budget.
+- ``run``'s control flow, with ``Trainer.step`` and the clock observed: the
+  iteration count, the Trainer's restart guard and what a restart
+  re-draws, the epoch permutations of the Trainer's stream, and the stop at
+  the first ``SYNC_BLOCK`` edge past the budget.
 - ``quality_matrix`` and ``quality_real_scale`` skip a cell their JSONL
   already holds; the real-scale demo runs at 8x6 pixels from a file and
   from memory.
@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from atmonr_tpu.training.metrics import image_metrics as jax_image_metrics
-from atmonr_tpu_torch import bench
+from atmonr_tpu_torch import Trainer
 from atmonr_tpu_torch.data.batching import epoch_permutation
 from atmonr_tpu_torch.data.harp2 import HARP2Dataset
 from atmonr_tpu_torch.data.synthetic import make_synthetic_granule
@@ -118,30 +118,27 @@ BUDGET = 2.5  # fake seconds: the clock reads t0 + 1, + 2, + 3 at steps 25, 50, 
 def run_trace(tmp_path_factory):
     """One ``run`` of the small config (refresh every 4 steps, a restart
     threshold below any loss) under a clock that advances one second a
-    read and a recording step. Returns the result, the printed text and,
-    per step, the step index, the optimizer, its count, the permutation and
-    whether the occupancy grid was the freshly reset one."""
+    read. Returns the result, the printed text and, per ``Trainer.step``,
+    the Trainer's step count, its optimizer, the optimizer's count, the rows
+    and whether the occupancy grid was the freshly reset one."""
     config = _config("xla")
     config["pipeline"]["occupancy"]["update_every"] = 4
-    config["trainer"] = {"optimizer": dict(OPTIMIZER), "restart_on_plateau": RESTART}
+    config["trainer"] = {"optimizer": dict(OPTIMIZER), "restart_on_plateau": RESTART,
+                         "scheduler": {"type": "fixed", "gamma": 1.0, "decay_start": 0,
+                                       "decay_interval": 1}}
     path = tmp_path_factory.mktemp("run") / "config.json"
     path.write_text(json.dumps(config))
     calls = []
-    real = bench.make_train_step
+    real = Trainer.step
 
-    def recording(pipe, optimizer, rays, perm, batch_size, draws_gen=None, aux_gen=None):
-        one_iter = real(pipe, optimizer, rays, perm, batch_size, draws_gen, aux_gen)
-
-        def step(i):
-            calls.append({"i": i, "opt": optimizer, "count": optimizer.count,
-                          "perm": perm.clone(), "fresh_grid": bool((pipe.occ == 1.0).all())})
-            return one_iter(i)
-
-        return step
+    def recording(self, idx, *args, **kwargs):
+        calls.append({"i": self.iter_count, "opt": self.optimizer, "count": self.optimizer.count,
+                      "rows": idx.clone(), "fresh_grid": bool((self.pipeline.occ == 1.0).all())})
+        return real(self, idx, *args, **kwargs)
 
     ticks = iter(range(1, 1000))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(bench, "make_train_step", recording)
+        mp.setattr(Trainer, "step", recording)
         mp.setattr(ab_importance, "time",
                    types.SimpleNamespace(perf_counter=lambda: float(next(ticks))))
         out = io.StringIO()
@@ -164,36 +161,38 @@ def test_run_stops_at_the_first_sync_block_past_the_budget(run_trace):
 
 
 def test_run_restarts_on_plateau(run_trace):
-    """A loss above the threshold at ``check_iter`` steps after each
-    (re)start re-draws the parameters, the optimizer (count 0) and the grid,
-    at steps 3 and 6, then stops checking at ``max_restarts``."""
+    """The Trainer's guard: a loss above the threshold at ``check_iter``
+    steps after each (re)start re-draws the parameters, the optimizer (count
+    0) and the grid, at steps 3 and 6, then stops checking at
+    ``max_restarts``."""
     calls = run_trace["calls"]
     assert run_trace["result"]["restarts"] == 2
-    assert "[restart 1 at iter 3]" in run_trace["text"]
-    assert "[restart 2 at iter 6]" in run_trace["text"]
+    assert "[restart 1] loss" in run_trace["text"] and "at iter 3;" in run_trace["text"]
+    assert "[restart 2] loss" in run_trace["text"] and "at iter 6;" in run_trace["text"]
     assert run_trace["text"].count("[restart") == 2
     opts = [c["opt"] for c in calls]
     assert opts[0] is opts[2] and opts[3] is not opts[2] and opts[6] is not opts[5]
     assert opts[6] is opts[-1]
     assert [calls[i]["count"] for i in (0, 2, 3, 5, 6, 74)] == [0, 2, 0, 2, 0, 68]
-    # a reset grid at each restart (the one refresh before t0 and those
-    # after steps 3, 7, ... fill it otherwise)
-    assert calls[3]["fresh_grid"] and calls[6]["fresh_grid"]
-    assert not calls[1]["fresh_grid"] and not calls[5]["fresh_grid"]
+    # a reset grid at each restart; the first refresh comes after step 4
+    assert all(c["fresh_grid"] for c in calls[:4]) and calls[6]["fresh_grid"]
+    assert not calls[4]["fresh_grid"] and not calls[5]["fresh_grid"]
 
 
 def test_run_draws_a_permutation_every_epoch(run_trace):
-    """The permutations are the perm stream's draws (seed ``1000 * seed +
-    2``), a new one before each epoch's first step."""
+    """The rows are the Trainer's perm stream's permutations, a new one
+    before each epoch's first step, as ``Trainer.iterate`` draws them."""
+    from atmonr_tpu_torch.training.trainer import _stream_seed
+
     calls = run_trace["calls"]
-    n = calls[0]["perm"].shape[0]
     ds = HARP2Dataset(_config("xla")["dataset"], make_synthetic_granule(**TINY), device="cpu")
     spe = ds.num_rays // RUN_BATCH
-    assert n == spe * RUN_BATCH and spe >= 2
-    gen = torch.Generator().manual_seed(1002)
+    assert spe >= 2
+    gen = torch.Generator().manual_seed(_stream_seed(1, 1))
     want = [epoch_permutation(gen, ds.num_rays, RUN_BATCH) for _ in range(75 // spe + 1)]
     for c in calls:
-        assert torch.equal(c["perm"], want[c["i"] // spe]), c["i"]
+        slot = c["i"] % spe
+        assert torch.equal(c["rows"], want[c["i"] // spe][slot * RUN_BATCH:(slot + 1) * RUN_BATCH]), c["i"]
 
 
 # -- the tools built on run ------------------------------------------------------------

@@ -12,15 +12,17 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.optim.optimizer import register_optimizer_step_pre_hook
 
 import _torch_ranks as ranks
-from atmonr_tpu_torch import bench
+from atmonr_tpu_torch import Trainer, bench
 from atmonr_tpu_torch.models.hash_grid import HashGridConfig
 from atmonr_tpu_torch.tools import (
     ab_clip_cost, ab_importance, ab_q8_sr, ab_q8_train_fp_eval, ab_q8_twophase,
     bench_dma_gather, bench_ref_capacity, bench_scaling, bench_trainer, diag_fwd_breakdown,
     diag_ref_capacity, profile_step, quality_matrix, quality_real_scale, real_scale_demo,
 )
+from atmonr_tpu_torch.tools import repro_occ15_collapse as collapse
 from atmonr_tpu_torch.utils.config import load_config
 
 FLAGSHIP = "configs/instant_ngp_tpu_occ13.json"
@@ -188,22 +190,19 @@ def test_ab_q8_sr_sweeps_seeds(capsys):
 
 
 def test_two_phase_hands_the_state_over(monkeypatch):
-    """Steps before the switch go through the q8 config's pipeline, the
-    rest through the flagship's, from the parameters, grid and optimizer
-    state the first left; the fp-eval tool switches after the last step."""
+    """Steps before the switch go through the q8 config's Trainer, the rest
+    through the flagship's, from the parameters, grid, optimizer state and
+    step count the first left; the fp-eval tool switches after the last
+    step."""
     calls = []
-    real = bench.make_train_step
+    real = Trainer.step
 
-    def recording(pipe, optimizer, *args):
-        one_iter = real(pipe, optimizer, *args)
+    def recording(self, *args, **kwargs):
+        pipe = self.pipeline
+        calls.append((self.iter_count, pipe.pos_cfg.fwd_mode, pipe.pos_sr, self.optimizer.count))
+        return real(self, *args, **kwargs)
 
-        def step(i):
-            calls.append((i, pipe.pos_cfg.fwd_mode, pipe.pos_sr, optimizer.count))
-            return one_iter(i)
-
-        return step
-
-    monkeypatch.setattr(bench, "make_train_step", recording)
+    monkeypatch.setattr(Trainer, "step", recording)
     r = ab_q8_twophase.main(["0.5"], device="cpu", num_iters=4, granule=TINY, batch_size=64)
     assert [c[:3] for c in calls] == [(0, "q8", False), (1, "q8", False), (2, "q8", True),
                                       (3, "q8", True)]
@@ -213,6 +212,55 @@ def test_two_phase_hands_the_state_over(monkeypatch):
     r = ab_q8_train_fp_eval.main([], device="cpu", num_iters=3, granule=TINY, batch_size=64)
     assert [c[:3] for c in calls] == [(i, "q8", False) for i in range(3)]
     assert np.isfinite(r["psnr"])
+
+
+# every entry point of the port that trains, at a tiny size on the CPU
+TRAINING_TOOLS = {
+    "bench.main": lambda tmp: bench.main(
+        device="cpu", batch_size=64, granule=TINY, warmup_block=2, max_warmup_iters=4,
+        provisional_iters=2, timed_iters=2),
+    "ab_importance.run": lambda tmp: ab_importance.run(
+        "x", FLAGSHIP, 3, device="cpu", granule=TINY, batch_size=64),
+    "real_scale_demo.main": lambda tmp: real_scale_demo.main(
+        ["height=8", "width=6", "steps=2", "source=memory"], device="cpu", warm_steps=1,
+        batch_size=256, extract_step=(3000.0, 2000.0)),
+    "repro_occ15_collapse.main": lambda tmp: collapse.main(
+        ["config=configs/instant_ngp_tpu_occ13_q8sr.json", "iters=3", "seed=0",
+         f"out={tmp / 'rows.jsonl'}"], device="cpu",
+        granule={"height": 12, "width": 8, "views_per_band": 2}, batch_size=32),
+    "profile_step.main": lambda tmp: profile_step.main(
+        [FLAGSHIP], device="cpu", batch=64, granule=TINY, iters=1, warmup=1),
+    "ab_clip_cost.main": lambda tmp: ab_clip_cost.main(
+        ["iters=1"], device="cpu", granule=TINY, batch_size=64, warmup=1),
+    "ab_q8_twophase.main": lambda tmp: ab_q8_twophase.main(
+        ["0.5"], device="cpu", num_iters=2, granule=TINY, batch_size=64),
+}
+
+
+@pytest.mark.parametrize("tool", sorted(TRAINING_TOOLS))
+def test_every_update_of_a_training_tool_is_a_trainer_step(tool, tmp_path, monkeypatch):
+    """Every optimizer update the tool makes is made inside ``Trainer.step``,
+    one update a call: the tools train with the step that users and the
+    benchmark run."""
+    inside, steps, updates = [], [], []
+    real = Trainer.step
+
+    def recording(self, *args, **kwargs):
+        steps.append(self.iter_count)
+        inside.append(self)
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(Trainer, "step", recording)
+    hook = register_optimizer_step_pre_hook(lambda *_: updates.append(bool(inside)))
+    try:
+        TRAINING_TOOLS[tool](tmp_path)
+    finally:
+        hook.remove()
+    assert steps and len(updates) == len(steps)
+    assert all(updates)
 
 
 def test_reference_capacity_tools_run_small(capsys):

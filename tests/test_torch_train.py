@@ -738,6 +738,40 @@ def test_restart_on_plateau_reinitialises(tmp_path, capsys):
     assert capsys.readouterr().out.count("re-drawing the init") == 2
 
 
+def test_check_restart_holds_iterate_restarts(tmp_path):
+    """``iterate``'s guard is ``check_restart``: on seed 3 it re-draws the
+    init after steps 3 and 6 and at no other step, each time from the init
+    stream reseeded to ``_stream_seed(3, 0, k)`` for the k-th restart; a loop
+    of ``step`` and ``check_restart`` on the same rows, as the tools run it,
+    restarts at the same steps to the same parameters."""
+    from atmonr_tpu_torch.tools import batches
+    from atmonr_tpu_torch.training.trainer import _stream_seed
+
+    kw = {"batch_size": 256, "num_iters": 9, "progress": False, "update_every": 1,
+          "restart_on_plateau": {"check_iter": 3, "loss_threshold": 1e-9, "max_restarts": 2}}
+
+    def params(tr):
+        return {k: v.detach().clone() for k, v in tr.pipeline.named_parameters()}
+
+    tr = _make_trainer(tmp_path, seed=3, name="iterate", **kw)
+    by_iterate = {it: params(tr) for it in tr.iterate(tmp_path / "out")
+                  if it == tr._restart_base}
+    manual = _make_trainer(tmp_path, seed=3, name="manual", **kw)
+    rows, running, by_loop = batches(manual), [], {}
+    while manual.iter_count < kw["num_iters"]:
+        running = (running + [manual.step(next(rows))])[-manual.print_frequency :]
+        if manual.check_restart(running):
+            by_loop[manual.iter_count] = params(manual)
+    assert sorted(by_iterate) == sorted(by_loop) == [3, 6]
+    for k, it in enumerate((3, 6), 1):
+        fresh = _make_trainer(tmp_path, seed=3, name=f"init{k}", **kw)
+        fresh.generators["init"].manual_seed(_stream_seed(3, 0, k))
+        fresh._init_model()
+        for name, want in params(fresh).items():
+            assert torch.equal(by_iterate[it][name], want), (it, name)
+            assert torch.equal(by_loop[it][name], want), (it, name)
+
+
 def test_restart_on_plateau_checks_a_healthy_run_once(tmp_path, capsys):
     tr = _make_trainer(
         tmp_path, batch_size=256, num_iters=8, progress=False,
