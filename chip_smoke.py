@@ -42,7 +42,9 @@ Phases, each of which raises on failure:
    Profiles one forward and one refresh (device time by kernel; idle share of
    the unprofiled median call).
 5. Extraction: ``run_extraction`` over 1,048,576 points along the granule's
-   rays, in 32,768-point batches.
+   rays, in 32,768-point batches: its graph counters, ``staged_batches``
+   (held to the call's batches: each went through the pinned ring) and the
+   call's device peak.
 6. Train: ``Trainer`` on the same config and granule at full width, 8,192
    rays per step, 192 steps (past ``restart_on_plateau.check_iter`` = 150,
    12 occupancy refreshes, epoch ends with metrics, the RGB comparison image
@@ -373,6 +375,7 @@ def reset_counts() -> None:
         for key in counts:
             counts[key] = 0
     run_extraction.graph_batches = run_extraction.eager_batches = run_extraction.captures = 0
+    run_extraction.staged_batches = 0
 
 
 def graph_counts() -> tuple[int, int, int]:
@@ -386,12 +389,18 @@ def check_graphed(tag: str, n: int, counts: tuple[int, int, int]) -> None:
     """The graph counters of one ``run_extraction`` of n points on the card
     in ``EXTRACT_BATCH`` batches: with two full batches or more, one capture
     on the first (its warm-up runs eagerly) and a replay for each later
-    one; the tail and a lone full batch run eagerly."""
+    one; the tail and a lone full batch run eagerly. Every batch went
+    through the pinned ring (``run_extraction.staged_batches``)."""
+    from atmonr_tpu_torch import run_extraction
+
     full, batches = n // EXTRACT_BATCH, -(-n // EXTRACT_BATCH)
     want = (full - 1, batches - full + 1, 1) if full > 1 else (0, batches, 0)
     if counts != want:
         raise RuntimeError(f"{tag}: graph_batches, eager_batches, captures {counts}, "
                            f"expected {want}")
+    if run_extraction.staged_batches != batches:
+        raise RuntimeError(f"{tag}: staged_batches {run_extraction.staged_batches}, "
+                           f"expected the call's {batches} batches")
 
 
 def read_counts() -> dict:
@@ -784,11 +793,15 @@ def phase_slice(card: str) -> tuple[dict, dict]:
     t = rng.uniform(0.0, 1.0, N_EXTRACT) * host["len"][idx]
     pts = host["origin"][idx].astype(np.float64) + host["dir"][idx] * t[:, None]
     xyz = pts * ds.scale + ds.offset[None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sigma = run_extraction(pipe, xyz, batch_size=32768)
     extract_s = time.perf_counter() - t0
     counts = read_counts()
     # ---- end of the main path ----
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
 
     n_batches = -(-N_EXTRACT // 32768)
     if sigma.shape != (N_EXTRACT, 1) or not np.all(np.isfinite(sigma)) or np.any(sigma < 0):
@@ -802,8 +815,13 @@ def phase_slice(card: str) -> tuple[dict, dict]:
     log(f"[slice] forward of {BATCH} rays (key=None, median of batches 2-4): "
         f"{steady * 1e3:.2f} ms = {BATCH / steady:.0f} rays/s on {card}; all five: "
         + ", ".join(f"{s * 1e3:.2f}" for s in fwd_s) + " ms")
+    graph_batches, eager_batches, _ = graph_counts()
     log(f"[extract] {N_EXTRACT} points in {n_batches} batches: {extract_s:.3f} s = "
-        f"{N_EXTRACT / extract_s:.0f} points/s on {card}; sigma max {float(sigma.max()):.3g} m^-1")
+        f"{N_EXTRACT / extract_s:.0f} points/s on {card}; sigma max {float(sigma.max()):.3g} m^-1; "
+        f"graph_batches {graph_batches}, eager_batches {eager_batches}, staged_batches "
+        f"{run_extraction.staged_batches}; device peak {peak_mb:.3f} MB over the call "
+        f"({resident / 1e6:.3f} MB resident before it; sigma {sigma.nbytes / 1e6:.3f} MB, the "
+        f"points as float32 would be {N_EXTRACT * 12 / 1e6:.3f} MB)")
     log(f"[slice] launches on the inference path: {show(counts)}; K2 none")
     return counts, {"config": config, "ds": ds, "pipe": pipe, "batch": batches[0]}
 

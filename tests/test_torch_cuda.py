@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_points import midpoint_points
 from atmonr_tpu_torch import Trainer, get_dataset, get_pipeline
 from atmonr_tpu_torch.models import hash_grid as hg
 from atmonr_tpu_torch.ops import hash_bwd as hbo
@@ -644,13 +645,21 @@ _GRAPHED_EXTRACTIONS = {  # kind: (config, include_height)
 def test_extraction_replays_a_cuda_graph(dev, kind):
     """``run_extraction`` over two full 32,768-point batches and a tail of
     5,000, for the flagship q8 pipeline, the NeRF, a pair-bucket grid and
-    both pipelines with ``include_height``: each call warms up on the first
-    full batch, captures once, replays the second and drops the graph; after
+    both pipelines with ``include_height``: each call stages its three
+    batches through the pinned ring, warms up on the first full batch,
+    captures once, replays the second and drops the graph; after
     ``load_params`` (in place) the next call reads the new values; one full
-    batch and a tail capture nothing. Each sigma equals the eager query's
-    (``pipeline.extract`` of each batch over ``scale``) bit for bit, and K1
-    and K1p advance by the eager query's launches."""
+    batch and a tail capture nothing. The float64 points sit at float32
+    midpoints once normalized, where a product with the reciprocal of the
+    scale rounds other ways: the card's ``normalize`` equals the host's
+    normalisation bit for bit, and each sigma equals the eager query's
+    (``pipeline.extract`` of each host-normalized float32 batch over
+    ``scale``) bit for bit. K1 and K1p advance by the eager query's
+    launches. The device peak of a call, over what was allocated before
+    it, grows by sigma's bytes alone when two full batches are added: no
+    (N, 3) array of the points is on the card."""
     from atmonr_tpu_torch import load_config, run_extraction
+    from atmonr_tpu_torch.extract.runner import normalize
 
     name, height = _GRAPHED_EXTRACTIONS[kind]
     config = load_config(f"configs/{name}")
@@ -671,10 +680,14 @@ def test_extraction_replays_a_cuda_graph(dev, kind):
             pipe.pos_mlp.layers[-1].weight.abs_()
     b, full = 32768, 2
     n = full * b + 5000
-    rng = np.random.default_rng(4)
-    xyz = rng.uniform(-0.9, 0.9, (n, 3)) * ds.scale + np.asarray(ds.offset)[None]
-    pts = torch.from_numpy(((xyz - np.asarray(pipe.offset)[None]) / pipe.scale)
-                           .astype(np.float32)).to(dev)
+    offset = np.asarray(pipe.offset, np.float64)
+    xyz = midpoint_points(2 * n, 4, offset, pipe.scale, reach=0.9)
+    host = ((xyz - offset[None]) / pipe.scale).astype(np.float32)
+    card = normalize(torch.from_numpy(xyz).to(dev), torch.from_numpy(offset).to(dev),
+                     torch.tensor(float(pipe.scale), dtype=torch.float64, device=dev))
+    np.testing.assert_array_equal(card.cpu().numpy(), host)
+    assert (((xyz - offset[None]) * (1.0 / pipe.scale)).astype(np.float32) != host).any()
+    pts = torch.from_numpy(host[:n]).to(dev)
 
     def moved(before):
         return {k: v - before[k] for k, v in _encode_launches().items() if v != before[k]}
@@ -687,28 +700,41 @@ def test_extraction_replays_a_cuda_graph(dev, kind):
 
     def counters():
         return (run_extraction.graph_batches, run_extraction.eager_batches,
-                run_extraction.captures)
+                run_extraction.captures, run_extraction.staged_batches)
 
     def graphed(points):
         before, launches = counters(), _encode_launches()
         sigma = run_extraction(pipe, points, batch_size=b)
         return sigma, tuple(a - c for a, c in zip(counters(), before)), moved(launches)
 
+    def peak_of_a_call(points) -> int:
+        """The call's device peak over what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        run_extraction(pipe, points, batch_size=b)
+        return torch.cuda.max_memory_allocated() - resident
+
     want, want_launches = eager()
     assert want.shape[0] == n and (want > 0).mean() > 0.1
     assert bool(want_launches) == (kind == "q8")
     for _ in range(2):  # each call captures on its first full batch and replays the rest
-        got, got_counts, got_launches = graphed(xyz)
-        assert got_counts == (full - 1, 2, 1) and got_launches == want_launches
+        got, got_counts, got_launches = graphed(xyz[:n])
+        assert got_counts == (full - 1, 2, 1, 3) and got_launches == want_launches
         np.testing.assert_array_equal(got, want)
     got, got_counts, _ = graphed(xyz[: b + 5000])  # one full batch: nothing to replay
-    assert got_counts == (0, 2, 0)
+    assert got_counts == (0, 2, 0, 2)
     np.testing.assert_array_equal(got, want[: b + 5000])
+    # two full batches more (the same tail): the peak grows by their sigma,
+    # not by the 12 bytes a point a float32 copy of the points would add
+    grown = np.concatenate([xyz[: 2 * b], xyz[:n]])
+    sigma_bytes = 2 * b * want.shape[1] * 4
+    assert peak_of_a_call(grown) - peak_of_a_call(xyz[:n]) < sigma_bytes + 2 * b * 12 // 4
     pipe.load_params({k: v.flip(0).clone() for k, v in pipe.named_parameters()})
     fresh, _ = eager()
     assert not np.array_equal(fresh, want)
-    got, got_counts, _ = graphed(xyz)
-    assert got_counts == (full - 1, 2, 1)
+    got, got_counts, _ = graphed(xyz[:n])
+    assert got_counts == (full - 1, 2, 1, 3)
     np.testing.assert_array_equal(got, fresh)
 
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from _torch_jax_native import jax_native_library  # noqa: F401  (an autouse fixture)
+from _torch_points import ecef_points, midpoint_points
 from atmonr_tpu.data.synthetic import (
     write_granule_l1c,
     write_synthetic_dem,
@@ -339,6 +340,107 @@ def test_run_extraction_writes_each_batch_into_one_sigma(datasets):
                       for i in range(0, len(pts), 500)]).numpy()
     assert len(grid) % 500 and got.shape == want.shape == (len(grid), 1)
     np.testing.assert_array_equal(got, want)
+
+
+class _PointsSeen:
+    """A pipeline stand-in on the CPU whose ``extract`` keeps the
+    normalized points of each batch."""
+
+    def __init__(self, scale: float, offset: np.ndarray):
+        self.scale, self.offset, self.device = scale, offset, "cpu"
+        self.batches = []
+
+    def extract(self, pts: torch.Tensor) -> torch.Tensor:
+        self.batches.append(pts.clone())
+        return pts.new_ones((pts.shape[0], 1))
+
+
+class _OneRankOf:
+    """The part of a (data, sample) device mesh that ``run_extraction``
+    reads: its shape and this rank's coordinate."""
+
+    def __init__(self, shape: tuple[int, int], coord: tuple[int, int]):
+        self.mesh, self.coord = torch.zeros(shape), coord
+
+    def get_coordinate(self):
+        return self.coord
+
+
+def test_batches_are_normalized_as_the_host_normalized_the_whole_grid(monkeypatch):
+    """Earth-scale ECEF points: ``normalize`` over 2 M of them, and 200,000
+    whose normalized coordinates sit at float32 midpoints, equals
+    ``((xyz - offset) / scale).astype(np.float32)`` bit for bit (a product
+    with the reciprocal of the scale does not, on the midpoints); so do the
+    points each batch of ``run_extraction`` hands to ``pipeline.extract``:
+    full batches and a tail, and with a mesh of four ranks each rank's rows
+    of each batch, the tail's last ranks padded with zero rows (one rank
+    gets no row of it)."""
+    from atmonr_tpu_torch.extract import runner
+
+    offset, scale = np.array([4605974.0, -3856799.375, 2186897.625]), 487_331.2734375
+    mid = midpoint_points(200_000, 12, offset, scale)
+    xyz = np.concatenate([mid, ecef_points(2_000_003, 11)])
+    want = ((xyz - offset[None]) / scale).astype(np.float32)
+    got = runner.normalize(torch.from_numpy(xyz), torch.from_numpy(offset),
+                           torch.tensor(scale, dtype=torch.float64))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    reciprocal = ((mid - offset[None]) * (1.0 / scale)).astype(np.float32)
+    assert (reciprocal != want[: len(mid)]).any()
+
+    b, small = 1000, xyz[: 5 * 1000 + 5]  # five full batches and a tail of 5
+    pipe = _PointsSeen(scale, offset)
+    run_extraction(pipe, small, batch_size=b)
+    assert [len(x) for x in pipe.batches] == [b] * 5 + [5]
+    np.testing.assert_array_equal(torch.cat(pipe.batches).numpy(), want[: len(small)])
+
+    monkeypatch.setattr(runner, "_gather_shares", lambda local, shares, mesh: local)
+    for rank in range(4):
+        pipe = _PointsSeen(scale, offset)
+        run_extraction(pipe, small, batch_size=b, mesh=_OneRankOf((2, 2), divmod(rank, 2)))
+        expect = []
+        for lo in range(0, len(small), b):
+            rows = want[lo : min(lo + b, len(small))]
+            m = -(-len(rows) // 4)
+            mine = rows[rank * m : (rank + 1) * m]
+            expect.append(np.concatenate([mine, np.zeros((m - len(mine), 3), np.float32)]))
+        assert [len(x) for x in pipe.batches] == [250] * 5 + [2]
+        np.testing.assert_array_equal(torch.cat(pipe.batches).numpy(), np.concatenate(expect))
+    assert len(expect[-1]) == 2 and not expect[-1].any()  # rank 3 gets no row of the tail
+
+
+def test_run_extraction_stages_no_batch_on_the_cpu(datasets):
+    """``staged_batches`` counts the batches that went through the pinned
+    ring, which only a card has: on the CPU it stays put."""
+    _, tds = datasets
+    tpipe = get_pipeline(_config("xla")["pipeline"], tds, device="cpu")
+    grid = get_extract_dataset("l1c", tds, alt_step=2000.0)
+    before = run_extraction.staged_batches
+    run_extraction(tpipe, grid, batch_size=500)
+    assert run_extraction.staged_batches == before
+
+
+def test_run_extraction_makes_no_array_of_the_grid_size_on_the_host(datasets):
+    """numpy reports its allocations to ``tracemalloc``: over a call on a
+    grid of N points the traced peak stays under a tenth of the N x 12
+    bytes a float32 copy of the normalized points would take (the points
+    are normalized a batch at a time from views of the grid's rows)."""
+    import tracemalloc
+
+    _, tds = datasets
+    tpipe = get_pipeline(_config("xla")["pipeline"], tds, device="cpu")
+    grid = get_extract_dataset("l1c", tds, alt_step=100.0)
+    n = len(grid)
+    assert n > 20_000
+    want = run_extraction(tpipe, grid, batch_size=4096)
+    tracemalloc.start()
+    try:
+        got = run_extraction(tpipe, grid, batch_size=4096)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    np.testing.assert_array_equal(got, want)
+    assert peak < n * 12 // 10, (peak, n)
 
 
 # -- writers -------------------------------------------------------------------

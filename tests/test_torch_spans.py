@@ -251,15 +251,19 @@ def test_extraction_spans_cover_each_batch(tmp_path):
     batches = by["extract.batch"]
     assert len(batches) == -(-n // 100)
     assert sum(b.count for b in batches) == n
-    for name in ("extract.normalize", "extract.to_device", "extract.to_host"):
-        assert len(by[name]) == 1, name
-    # the few long spans read the CPU clock, the batches do not
-    for name in ("extract.grid", "extract.query", "extract.to_device", "extract.to_host"):
+    # the points are normalized a batch at a time, inside the batch's query
+    assert "extract.normalize" not in by and len(by["extract.to_host"]) == 1
+    # one copy in for each batch, inside it, counting the batch's rows
+    to_device, of = by["extract.to_device"], {b.id: b for b in batches}
+    assert len(to_device) == len(batches) and {r.parent for r in to_device} == set(of)
+    assert all(r.count == of[r.parent].count for r in to_device)
+    # the few long spans read the CPU clock, the batches and their copies in do not
+    for name in ("extract.grid", "extract.query", "extract.to_host"):
         assert by[name][0].cpu_ns is not None, name
-    assert all(r.cpu_ns is None for r in by["extract.batch"] + by["extract.normalize"])
+    assert all(r.cpu_ns is None for r in batches + to_device)
     for r in records:
         if r.name.startswith("extract.") and r.name not in ("extract.grid", "extract.grid.points",
-                                                            "extract.query"):
+                                                            "extract.query", "extract.to_device"):
             assert r.parent == query.id, r.name
     np.testing.assert_array_equal(sigma, run_extraction(tr.pipeline, grid, batch_size=100))
 
