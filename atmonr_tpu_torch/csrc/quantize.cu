@@ -1,5 +1,5 @@
-// Table preparation of the q8 and f8 hash-encode modes, sm_90a: kernel K1p
-// of the port.
+// Table preparation of the q8, f8 and bf16 hash-encode modes, sm_90a: kernel
+// K1p of the port (round_bf16_kernel, the bf16 rounding, is at the end).
 //
 // Replaces the quantizer inside the TPU kernel atmonr_tpu/ops/
 // hash_gather_pallas.py::hash_encode_pallas_fwd: its pack_tables (:354),
@@ -73,6 +73,7 @@
 // the hardware schedules a cluster's blocks together.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -298,6 +299,29 @@ cudaError_t max_clusters(int n_levels, int cluster, int threads, int* out) {
   return cudaOccupancyMaxActiveClusters(out, quantize_kernel<kF8, kNoise>, &config);
 }
 
+// The bf16 preparation: the f32 master table rounded to bfloat16, nearest
+// even (cvt.rn.bf16x2.f32), as torch's cast rounds; a NaN stays a NaN, its
+// payload outside the bit-equality. No level and no scale: every entry
+// alone. Bound on this card: bytes, 4 read and 2 written an entry (169.1 MB
+// and 84.6 MB at the 2^21 position table). A thread rounds 8 entries: two
+// float4 loads, one 16-byte store; one thread per 8 entries, blocks of
+// kRoundThreads. It computes what torch's cast computes, under a kernel name
+// of the port's own, which a device trace can tell from the MLPs' casts.
+constexpr int kRoundThreads = 256;
+
+__device__ __forceinline__ unsigned int bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const unsigned int*>(&v);
+}
+
+__global__ void __launch_bounds__(kRoundThreads)
+round_bf16_kernel(const float4* __restrict__ table, uint4* __restrict__ out, long long n8) {
+  const long long i = static_cast<long long>(blockIdx.x) * kRoundThreads + threadIdx.x;
+  if (i >= n8) return;
+  const float4 a = __ldg(table + 2 * i), b = __ldg(table + 2 * i + 1);
+  out[i] = make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(b.x, b.y), bf16x2(b.z, b.w));
+}
+
 }  // namespace
 
 // table (n_rows, 2) f32 -> codes (n_rows, 2) int8 (f8 = 0) or e4m3 (f8 = 1)
@@ -364,4 +388,28 @@ extern "C" int quantize_launch_floor(int n_levels, int cluster, int threads, voi
   cudaLaunchConfig_t config = cluster_config(n_levels, cluster, threads, 0,
                                              static_cast<cudaStream_t>(stream), &attr);
   return cudaLaunchKernelEx(&config, empty_kernel);
+}
+
+// table (n_entries,) f32 -> out (n_entries,) bf16, each entry rounded to
+// nearest even, on `stream`, in one launch of round_bf16_kernel. n_entries
+// is a multiple of 8 (a table of 2 features has rows in multiples of 8 at
+// every level); table and out are 16-byte aligned. Returns the cudaError_t of
+// the launch (0 on success), or cudaErrorInvalidValue /
+// cudaErrorMisalignedAddress without a launch.
+extern "C" int round_table_bf16(const void* table, void* out, long long n_entries,
+                                void* stream) {
+  if (n_entries <= 0 || n_entries % 8 != 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return cudaErrorMisalignedAddress;
+  }
+  const long long n8 = n_entries / 8;
+  const long long blocks = (n8 + kRoundThreads - 1) / kRoundThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(blocks), 1, 1);
+  config.blockDim = dim3(kRoundThreads, 1, 1);
+  config.stream = static_cast<cudaStream_t>(stream);
+  return cudaLaunchKernelEx(&config, round_bf16_kernel, static_cast<const float4*>(table),
+                            static_cast<uint4*>(out), n8);
 }

@@ -31,7 +31,12 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from atmonr_tpu_torch.ops.hash_gather import hash_gather, quantize_tables
+from atmonr_tpu_torch.ops.hash_gather import (
+    hash_gather,
+    prepare_table,
+    quantize_tables,
+    round_table_bf16,
+)
 from atmonr_tpu_torch.utils import spans
 
 
@@ -69,8 +74,9 @@ def run_extraction(
     included), ``.captures`` and ``.staged_batches`` (the batches that went
     through the pinned ring: on a card all of them, on the CPU none); a
     replay adds the K1 and K1p launches of its graph to
-    ``hash_gather.launches`` and ``quantize_tables.launches``, and a
-    capture adds none.
+    ``hash_gather.launches``, ``quantize_tables.launches`` and
+    ``round_table_bf16.launches``, and its table preparations to
+    ``prepare_table.calls``; a capture adds none.
 
     ``mesh`` (every rank of it calls): the batch is trimmed to a multiple
     of the mesh's W ranks, as in the JAX package, and the rank at (d, s)
@@ -228,18 +234,18 @@ def _stream(index: int) -> torch.cuda.Stream:
 @dataclasses.dataclass
 class _CapturedQuery:
     """One CUDA graph of the batch's query at a static input and output.
-    ``launches`` are the counter increments of one replay: (counted
-    function, its ``launches`` key, launches). A replay reads the static
-    input as it stands and its result is valid until the next replay."""
+    ``increments`` are the counter increments of one replay: (counter, its
+    key, increment). A replay reads the static input as it stands and its
+    result is valid until the next replay."""
 
     graph: torch.cuda.CUDAGraph
     static_out: torch.Tensor
-    launches: list
+    increments: list
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        for fn, k, v in self.launches:
-            fn.launches[k] += v
+        for counter, k, v in self.increments:
+            counter[k] += v
         return self.static_out
 
 
@@ -249,17 +255,19 @@ def _capture(query, static_in: torch.Tensor) -> tuple[_CapturedQuery, torch.Tens
     it returns beside the graph, then the capture, which reads
     ``static_in`` at every replay."""
     out = query(static_in)  # lazy set-up (libraries, handles) before capture
-    counted = (hash_gather, quantize_tables)
-    before = [dict(fn.launches) for fn in counted]
+    # what the query's graph moves: K1's and K1p's launches, the table preparations
+    counters = (hash_gather.launches, quantize_tables.launches, round_table_bf16.launches,
+                prepare_table.calls)
+    before = [dict(c) for c in counters]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=torch.cuda.current_stream(static_in.device),
                           capture_error_mode="thread_local"):
         static_out = query(static_in)
-    launches = []
-    for fn, was in zip(counted, before):  # a capture launches nothing; each replay does
-        launches += [(fn, k, v - was[k]) for k, v in fn.launches.items() if v != was[k]]
-        fn.launches.update(was)
-    return _CapturedQuery(graph, static_out, launches), out
+    increments = []
+    for counter, was in zip(counters, before):  # a capture launches nothing; each replay does
+        increments += [(counter, k, v - was[k]) for k, v in counter.items() if v != was[k]]
+        counter.update(was)
+    return _CapturedQuery(graph, static_out, increments), out
 
 
 def _gather_shares(local: torch.Tensor, shares: list[int], mesh) -> torch.Tensor:

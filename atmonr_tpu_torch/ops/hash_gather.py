@@ -1,14 +1,20 @@
 """Hash-encode forward over bf16, f32, int8 (q8) and float8 (f8) tables:
-kernels K1 (the gather) and K1p (the q8/f8 table preparation) of the port.
+kernels K1 (the gather) and K1p (the q8/f8/bf16 table preparation) of the
+port.
 
 Replaces the TPU kernel ``atmonr_tpu/ops/hash_gather_pallas.py::
 hash_encode_pallas_fwd`` in its four modes: its table packing and
 quantization (``pack_tables``) and its gather. The parts:
 
 - ``prepare_table``: the table as a mode's kernel reads it, from the float32
-  master table. ``"bf16"``: the table rounded to bfloat16 (nearest even), a
-  natural (T, 2) tensor. ``"f32"``: the master table itself. ``"q8"`` and
-  ``"f8"``: ``quantize_tables``.
+  master table. ``"bf16"``: ``round_table_bf16``, a natural (T, 2) tensor.
+  ``"f32"``: the master table itself. ``"q8"`` and ``"f8"``:
+  ``quantize_tables``. Each call adds one to ``prepare_table.calls[(mode,
+  D)]``, on every device.
+- ``round_table_bf16``: the table rounded to bfloat16 (nearest even). On a
+  CUDA tensor it launches the bf16 instance of K1p (``round_bf16_kernel`` of
+  ``csrc/quantize.cu``), bit for bit ``table.to(torch.bfloat16)`` there; on
+  a CPU tensor it runs that cast.
 - ``quantize_tables``: the wrapper of the CUDA kernel ``csrc/quantize.cu``
   (K1p). On a CUDA tensor it launches the kernel, or raises; on a CPU
   tensor it runs the plain version: ``quantize_tables_q8`` (per-level
@@ -124,13 +130,53 @@ def prepare_table(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The float32 master table as ``mode``'s kernel reads it: (table of
     ``TABLE_DTYPES[mode]``, (L,) f32 scales or None). ``noise`` is q8's
-    stochastic rounding. q8 and f8 go to ``quantize_tables`` (kernel K1p on
-    a card)."""
-    if mode in _SCALED:
-        return quantize_tables(table, cfg, mode, noise if mode == "q8" else None)
+    stochastic rounding. q8 and f8 go to ``quantize_tables`` and bf16 to
+    ``round_table_bf16`` (kernel K1p on a card); f32 is the table itself.
+    Each call adds one to ``prepare_table.calls[(mode, D)]``."""
     if mode not in KERNEL_MODES:
         raise ValueError(f"no hash gather kernel for mode {mode!r}; known: {KERNEL_MODES}")
-    return table.to(TABLE_DTYPES[mode]), None
+    prepare_table.calls[(mode, cfg.n_dims)] += 1
+    if mode in _SCALED:
+        return quantize_tables(table, cfg, mode, noise if mode == "q8" else None)
+    if mode == "bf16":
+        return round_table_bf16(table, cfg), None
+    return table, None
+
+
+prepare_table.calls = {(mode, d): 0 for mode in KERNEL_MODES for d in (2, 3)}
+
+
+def round_table_bf16(table: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
+    """The bf16 instance of kernel K1p: the (total_params, 2) float32 master
+    table -> the bfloat16 table, each entry rounded to nearest even.
+
+    A CUDA tensor goes to ``round_bf16_kernel`` of ``csrc/quantize.cu``
+    (built at first use) on the current stream, one launch, which adds one
+    to ``round_table_bf16.launches[D]``; it equals ``table.to(torch.bfloat16)``
+    on the card bit for bit, and a failed launch raises. A CPU tensor takes
+    that cast. Other devices raise."""
+    shape = (cfg.total_params, 2)
+    if table.dtype != torch.float32 or table.shape != shape:
+        raise ValueError(f"table must be float32 {shape}")
+    if table.device.type == "cpu":
+        return table.to(torch.bfloat16)
+    if table.device.type != "cuda":
+        raise ValueError(f"no bf16 table rounding for device {table.device}")
+    table = table.contiguous()
+    if table.data_ptr() % 16:  # the kernel reads float4s
+        table = table.clone()
+    out = torch.empty(shape, dtype=torch.bfloat16, device=table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = _quantize_library().round_table_bf16(table.data_ptr(), out.data_ptr(),
+                                                   table.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"round_table_bf16 launch failed: CUDA error {err}")
+    round_table_bf16.launches[cfg.n_dims] += 1
+    return out
+
+
+round_table_bf16.launches = {2: 0, 3: 0}
 
 
 @functools.cache
@@ -152,6 +198,8 @@ def _quantize_library():
     ]
     lib.quantize_launch_floor.restype = c_int
     lib.quantize_launch_floor.argtypes = [c_int, c_int, c_int, c_ptr]
+    lib.round_table_bf16.restype = c_int
+    lib.round_table_bf16.argtypes = [c_ptr, c_ptr, ctypes.c_longlong, c_ptr]
     return lib
 
 
@@ -370,7 +418,8 @@ class _HashEncode(torch.autograd.Function):
         with spans.span("hash_encode.fwd", count=len(x)):
             ctx.save_for_backward(x)
             ctx.cfg = cfg
-            prepared, scales = prepare_table(table, cfg, mode, noise)
+            with spans.span("hash_encode.prepare", count=len(table)):
+                prepared, scales = prepare_table(table, cfg, mode, noise)
             return hash_gather(prepared, scales, x, cfg)
 
     @staticmethod

@@ -32,7 +32,11 @@ Phases, each of which raises on failure:
    tables and a 2^14 position table, q8 with and without stochastic-rounding
    noise and f8: codes and scales equal to its plain version's bit for bit,
    its device ms and the plain version's (graph replay) beside its bound and
-   its launch floor (an empty kernel in its grid and cluster shape).
+   its launch floor (an empty kernel in its grid and cluster shape). K1p's
+   bf16 instance (``round_bf16_kernel``, the bf16 table's rounding) at both
+   flagship tables and the 2^21 position table: equal to
+   ``table.to(torch.bfloat16)`` on the card bit for bit, its device ms and
+   the cast's (graph replay) beside its bound.
 4. Slice: loads ``configs/instant_ngp_tpu_occ13.json`` unchanged, builds a
    ``synthetic:128x64x2`` granule and the pipeline on the card (random
    weights from seed 0), refreshes the occupancy grid once, renders 4 batches
@@ -240,9 +244,12 @@ K1_MODES = ("q8", "bf16", "f32", "f8")
 K1_ROW_BYTES = {"q8": 2, "bf16": 4, "f32": 8, "f8": 2}
 K1_NO_LIBRARY = "no single PyTorch call computes a multi-level hashed gather"
 K1_TOL = 1e-6  # of max|out|: the kernel rounds each op as the plain version does
-# K1p, the q8/f8 table preparation of the same TPU kernel (its pack_tables)
+# K1p, the q8/f8/bf16 table preparation of the same TPU kernel (its pack_tables)
 K1P_SOURCE = "atmonr_tpu_torch/csrc/quantize.cu"
 K1P_NO_LIBRARY = "no single PyTorch call computes a per-level quantization"
+# the bf16 instance's plain version is one library call, the cast, which it
+# replaces to carry a kernel name of the port's own in a device trace
+K1P_BF16_LIBRARY = "table.to(torch.bfloat16)"
 K2_SOURCE = "atmonr_tpu_torch/csrc/hash_bwd.cu"
 K2_REPLACES = "atmonr_tpu/ops/hash_bwd_pallas.py:183"
 K2_NO_LIBRARY = "no single PyTorch call computes the index math and the scatter"
@@ -348,6 +355,15 @@ def k1p_bound(cfg, noise: bool) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k1p_bf16_bound(cfg) -> tuple[float, str]:
+    """Least time for K1p's bf16 instance on grid ``cfg``: the table read
+    once (8 bytes a row) and the bf16 table written once (4 bytes a row)
+    over the memory rate; one rounding an entry."""
+    rows = cfg.total_params
+    t_bytes, t_ops = rows * 12 / PEAK_BYTES_S, rows * 2 / PEAK_F32_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def k2_bound(m: int, cfg) -> tuple[float, str, int]:
     """Least time for K2 on (m, D) points: positions and cotangent read
     once and the table cotangent written once over the memory rate, against
@@ -368,10 +384,10 @@ def reset_counts() -> None:
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
     from atmonr_tpu_torch.ops.hash_gather import hash_gather
 
-    from atmonr_tpu_torch.ops.hash_gather import quantize_tables
+    from atmonr_tpu_torch.ops.hash_gather import quantize_tables, round_table_bf16
 
-    for counts in (hash_gather.launches, quantize_tables.launches, hash_bwd.launches,
-                   block_fetch.launches):
+    for counts in (hash_gather.launches, quantize_tables.launches, round_table_bf16.launches,
+                   hash_bwd.launches, block_fetch.launches):
         for key in counts:
             counts[key] = 0
     run_extraction.graph_batches = run_extraction.eager_batches = run_extraction.captures = 0
@@ -408,10 +424,11 @@ def read_counts() -> dict:
     ("K1p", mode, D), ("K2", None, D) and ("T2", None, rows a descriptor)."""
     from atmonr_tpu_torch.ops.block_fetch import block_fetch
     from atmonr_tpu_torch.ops.hash_bwd import hash_bwd
-    from atmonr_tpu_torch.ops.hash_gather import hash_gather, quantize_tables
+    from atmonr_tpu_torch.ops.hash_gather import hash_gather, quantize_tables, round_table_bf16
 
     counts = {("K1", mode, d): n for (mode, d), n in hash_gather.launches.items()}
     counts.update({("K1p", mode, d): n for (mode, d), n in quantize_tables.launches.items()})
+    counts.update({("K1p", "bf16", d): n for d, n in round_table_bf16.launches.items()})
     counts.update({("K2", None, d): n for d, n in hash_bwd.launches.items()})
     counts.update({("T2", None, rpd): n for rpd, n in block_fetch.launches.items()})
     return counts
@@ -432,10 +449,10 @@ def show(counts: dict) -> str:
 
 def encodes(mode: str, d3: int, d2: int = 0) -> dict:
     """The launches of ``d3`` and ``d2`` hash encodes in ``mode`` at D=3 and
-    D=2: K1 once each and, in q8 and f8, K1p (the table's preparation) once
-    each too."""
+    D=2: K1 once each and, in q8, f8 and bf16, K1p (the table's
+    preparation) once each too."""
     want = {("K1", mode, 3): d3, ("K1", mode, 2): d2}
-    if mode in ("q8", "f8"):
+    if mode in ("q8", "f8", "bf16"):
         want.update({("K1p", mode, 3): d3, ("K1p", mode, 2): d2})
     return launched(want)
 
@@ -627,6 +644,36 @@ def check_k1p(mode: str, label: str, cfg, table, noise=None, reps: int = 50) -> 
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_k1p_bf16(label: str, cfg, table, reps: int = 50) -> dict:
+    """K1p's bf16 instance against ``table.to(torch.bfloat16)`` on the same
+    card tensor: raises unless equal bit for bit and the launch counter
+    moved by one; returns the times (device ms by graph replay, of the
+    kernel and of the cast; per call with the host launch) and the bound."""
+    from atmonr_tpu_torch.ops import hash_gather as hgo
+    from atmonr_tpu_torch.utils.timing import graph_ms, median_ms
+
+    before = hgo.round_table_bf16.launches[cfg.n_dims]
+    got = hgo.round_table_bf16(table, cfg)
+    torch.cuda.synchronize()
+    if hgo.round_table_bf16.launches[cfg.n_dims] != before + 1:
+        raise RuntimeError("K1p bf16 launch counter did not move")
+    want = table.to(torch.bfloat16)
+    wrong = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    if wrong or got.shape != want.shape:
+        raise RuntimeError(f"K1p bf16 {label} differs from the cast: {wrong} entries")
+    kernel = lambda: hgo.round_table_bf16(table, cfg)  # noqa: E731
+    call_ms = median_ms(kernel, reps=reps, warmup=10)
+    ms = graph_ms(kernel)
+    plain_ms = graph_ms(lambda: table.to(torch.bfloat16))
+    bound_ms, bound_by = k1p_bf16_bound(cfg)
+    log(f"[kernel] K1p bf16 {label} D={cfg.n_dims} T={cfg.total_params}: equal to "
+        f"{K1P_BF16_LIBRARY} bit for bit, device {ms:.4f} ms, per call with launch "
+        f"{call_ms:.4f} ms, the cast {plain_ms:.4f} ms (graph replay), bound {bound_ms:.4f} ms "
+        f"({bound_by}; {cfg.total_params * 12 / 1e6:.1f} MB)")
+    return {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def k1p_rows(label: str, cfg, table, noise) -> list[dict]:
     """K1p's rows of the kernels line at grid ``cfg``: q8 (the row's times
     those of the rounding the flagship takes there: stochastic on the
@@ -651,6 +698,14 @@ def k1p_rows(label: str, cfg, table, noise) -> list[dict]:
             row.update({f"ms_{'round' if noisy else 'noise'}": other["ms"],
                         f"bound_ms_{'round' if noisy else 'noise'}": other["bound_ms"]})
         rows.append(row)
+    res = check_k1p_bf16(label, cfg, table)
+    rows.append({
+        "name": f"round bf16 D={cfg.n_dims} ({label} grid)", "route": "cuda",
+        "source": K1P_SOURCE, "replaces": K1_REPLACES, "key": ("K1p", "bf16", cfg.n_dims),
+        "launches": 0, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+        "library_ms": res["plain_ms"],
+    })
     return rows
 
 
@@ -712,6 +767,10 @@ def phase_kernels(encodings: dict, big_encoding: dict) -> list[dict]:
     table = torch.rand((cfg.total_params, 2), generator=gen, device=dev) * 2e-4 - 1e-4
     x = torch.rand((m, 3), generator=gen, device=dev)
     big = check_k1("bf16", "pos 2^21", cfg, table, x, reps=20)
+    prep = check_k1p_bf16("pos 2^21", cfg, table, reps=20)
+    row = next(r for r in rows if r["key"] == ("K1p", "bf16", 3))
+    row.update(ms_2p21_table=prep["ms"], plain_ms_2p21_table=prep["plain_ms"],
+               bound_ms_2p21_table=prep["bound_ms"])
     sectors = m * cfg.n_levels * 8
     log(f"[kernel] K1 bf16 pos 2^21: the {cfg.total_params * 4 / 1e6:.1f} MB table exceeds the "
         f"50 MB L2; {sectors / 1e6:.1f} M gathers of one 32-byte sector each are "
@@ -2561,7 +2620,7 @@ def phase_entry(card: str, rows: list[dict]) -> dict:
         loss, color = fn(pipe, batch)
         torch.cuda.synchronize()
     entry_counts = read_counts()
-    want = {("K1", "bf16", 3): 1, ("K1", "bf16", 2): 1}
+    want = encodes("bf16", 1, 1)
     if launched(entry_counts) != want:
         raise RuntimeError(f"entry() launched {show(entry_counts)}, want {show(want)}")
     cfn, (cpipe, cbatch) = graft_entry.entry(device="cpu")

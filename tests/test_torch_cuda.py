@@ -1,4 +1,5 @@
-"""Kernels K1 (``csrc/hash_gather.cu``), K1p (``csrc/quantize.cu``), K2
+"""Kernels K1 (``csrc/hash_gather.cu``), K1p (``csrc/quantize.cu``: q8, f8
+and bf16), K2
 (``csrc/hash_bwd.cu``) and T2 (``csrc/block_fetch.cu``) against their plain
 PyTorch versions, on the card,
 and the paths that take no kernel
@@ -368,6 +369,73 @@ def test_prepare_table_takes_the_quantizer_kernel_or_raises(dev, monkeypatch):
     assert hgo.quantize_tables.launches == before
 
 
+# K1p's bf16 instance: the flagship's two tables and the published 2^21 one
+BF16_GRIDS = {
+    "pos": (OPTIONS, 3),
+    "surface": (OPTIONS, 2),
+    "2^21": (dict(OPTIONS, log2_hashmap_size=21), 3),
+}
+
+
+def _bf16_case(grid, seed, dev):
+    """A table of entries over many binades (subnormals among them), with
+    ties (halfway between two bfloat16s, rounded to even), signed zeros,
+    infinities and NaNs."""
+    options, n_dims = BF16_GRIDS[grid]
+    cfg = hg.HashGridConfig.from_options(options, n_dims)
+    rng = np.random.default_rng(seed)
+    shape = (cfg.total_params, 2)
+    binades = np.exp2(rng.integers(-140, 100, shape))
+    table = (rng.standard_normal(shape) * binades).astype(np.float32)
+    ties = (rng.integers(0, 1 << 16, shape[0], dtype=np.uint32) << 16) | 0x8000
+    table[:, 1] = ties.view(np.float32)
+    table[:4, 0] = [0.0, -0.0, np.inf, -np.inf]
+    return cfg, torch.from_numpy(table).to(dev)
+
+
+def _assert_bf16_equal(got, want):
+    """Bit for bit where ``want`` is a number, NaN where it is NaN (a NaN's
+    payload is outside the equality)."""
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])
+
+
+@pytest.mark.parametrize("grid", list(BF16_GRIDS))
+def test_bf16_rounding_kernel_equals_the_cast(dev, grid):
+    """K1p's bf16 instance equals ``table.to(torch.bfloat16)`` on the card
+    bit for bit, a misaligned and a strided table too, one launch a call;
+    ``prepare_table`` in bf16 takes it once and counts one preparation;
+    inputs it does not take raise and launch nothing."""
+    cfg, table = _bf16_case(grid, 80, dev)
+    d = cfg.n_dims
+    want = table.to(torch.bfloat16)
+    assert int(torch.isnan(want).sum()) > 0
+    flat = torch.empty(table.numel() + 1, device=dev)
+    misaligned = flat[1:].view(table.shape)
+    misaligned.copy_(table)
+    strided = table.t().contiguous().t()
+    for t in (table, misaligned, strided):
+        before = hgo.round_table_bf16.launches[d]
+        got = hgo.round_table_bf16(t, cfg)
+        torch.cuda.synchronize()
+        assert hgo.round_table_bf16.launches[d] == before + 1
+        _assert_bf16_equal(got, want)
+    def counts():
+        return hgo.round_table_bf16.launches[d], hgo.prepare_table.calls[("bf16", d)]
+
+    before = counts()
+    got, scales = hgo.prepare_table(table, cfg, "bf16")
+    assert scales is None and counts() == (before[0] + 1, before[1] + 1)
+    _assert_bf16_equal(got, want)
+    before = dict(hgo.round_table_bf16.launches)
+    for bad in (table.double(), table[:-8], table.half()):
+        with pytest.raises(ValueError):
+            hgo.round_table_bf16(bad, cfg)
+    assert hgo.round_table_bf16.launches == before
+
+
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 1.5), (0.4, 0.41)], ids=["in", "out", "clustered"])
 @pytest.mark.parametrize("n_dims", [2, 3])
 def test_bwd_kernel_matches_plain(dev, n_dims, lo, hi):
@@ -628,12 +696,16 @@ def test_kernel_less_position_grid_on_the_card(dev, tmp_path, monkeypatch, varia
 
 
 def _encode_launches() -> dict:
+    """K1's and K1p's launches and the table preparations."""
     return {**{("K1",) + k: v for k, v in hgo.hash_gather.launches.items()},
-            **{("K1p",) + k: v for k, v in hgo.quantize_tables.launches.items()}}
+            **{("K1p",) + k: v for k, v in hgo.quantize_tables.launches.items()},
+            **{("K1p", "bf16", d): v for d, v in hgo.round_table_bf16.launches.items()},
+            **{("prepare",) + k: v for k, v in hgo.prepare_table.calls.items()}}
 
 
 _GRAPHED_EXTRACTIONS = {  # kind: (config, include_height)
     "q8": ("instant_ngp_tpu_occ13.json", False),  # the flagship: K1p and K1 q8
+    "bf16_2^21": ("instant_ngp_occ21.json", False),  # the published table: K1p and K1 bf16
     "nerf": ("nerf.json", False),  # GEMMs alone
     "pb": ("instant_ngp_pb.json", False),  # pair-bucket hash: the exact gather
     "ngp_height": ("instant_ngp_tpu.json", True),  # a 4-D position grid, no kernel
@@ -644,20 +716,22 @@ _GRAPHED_EXTRACTIONS = {  # kind: (config, include_height)
 @pytest.mark.parametrize("kind", list(_GRAPHED_EXTRACTIONS))
 def test_extraction_replays_a_cuda_graph(dev, kind):
     """``run_extraction`` over two full 32,768-point batches and a tail of
-    5,000, for the flagship q8 pipeline, the NeRF, a pair-bucket grid and
-    both pipelines with ``include_height``: each call stages its three
-    batches through the pinned ring, warms up on the first full batch,
-    captures once, replays the second and drops the graph; after
+    5,000, for the flagship q8 pipeline, the published 2^21 bf16 tables,
+    the NeRF, a pair-bucket grid and both pipelines with
+    ``include_height``: each call stages its three batches through the
+    pinned ring, warms up on the first full batch, captures once, replays
+    the second and drops the graph; after
     ``load_params`` (in place) the next call reads the new values; one full
     batch and a tail capture nothing. The float64 points sit at float32
     midpoints once normalized, where a product with the reciprocal of the
     scale rounds other ways: the card's ``normalize`` equals the host's
     normalisation bit for bit, and each sigma equals the eager query's
     (``pipeline.extract`` of each host-normalized float32 batch over
-    ``scale``) bit for bit. K1 and K1p advance by the eager query's
-    launches. The device peak of a call, over what was allocated before
-    it, grows by sigma's bytes alone when two full batches are added: no
-    (N, 3) array of the points is on the card."""
+    ``scale``) bit for bit. K1, K1p and the table preparations advance by
+    the eager query's: one of each a batch, replays included. The device
+    peak of a call, over what was allocated before it, grows by sigma's
+    bytes alone when two full batches are added: no (N, 3) array of the
+    points is on the card."""
     from atmonr_tpu_torch import load_config, run_extraction
     from atmonr_tpu_torch.extract.runner import normalize
 
@@ -717,7 +791,9 @@ def test_extraction_replays_a_cuda_graph(dev, kind):
 
     want, want_launches = eager()
     assert want.shape[0] == n and (want > 0).mean() > 0.1
-    assert bool(want_launches) == (kind == "q8")
+    mode = {"q8": "q8", "bf16_2^21": "bf16"}.get(kind)
+    assert want_launches == ({} if mode is None else {
+        (k, mode, 3): full + 1 for k in ("K1", "K1p", "prepare")})
     for _ in range(2):  # each call captures on its first full batch and replays the rest
         got, got_counts, got_launches = graphed(xyz[:n])
         assert got_counts == (full - 1, 2, 1, 3) and got_launches == want_launches
