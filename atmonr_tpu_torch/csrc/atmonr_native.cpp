@@ -1,13 +1,15 @@
 // Host library of atmonr_tpu_torch: multithreaded (OpenMP) geodesy and voxel
 // walks for dataset and grid construction, the port's own copy of the JAX
 // package's native/atmonr_native.cpp. Every entry point computes what its
-// counterpart there computes, with the same arithmetic; one is new:
+// counterpart there computes, with the same arithmetic; two are new:
 // atmonr_voxel_keys, the walk that writes one int64 key per voxel for the
-// global grid.
+// global grid, and atmonr_grid_h2c, the regional grids' points.
 //
 // A plain C interface, loaded with ctypes (atmonr_tpu_torch/native.py):
 //   atmonr_build_rays       per-pixel ray construction (origins, dirs, lens)
 //   atmonr_h2c / atmonr_c2h bulk WGS-84 horizontal <-> Cartesian conversion
+//   atmonr_grid_h2c         a pixel grid's per-pixel terms over an altitude
+//                           ladder -> (P, na, 3) Cartesian points
 //   atmonr_voxel_traversal  batched Amanatides-Woo walk, int32 voxel rows
 //   atmonr_voxel_keys       the same walk, one int64 key per voxel
 //   atmonr_num_threads      OpenMP's thread count
@@ -203,6 +205,29 @@ void atmonr_h2c(const double* lat, const double* lon, const double* alt,
 #pragma omp parallel for schedule(static)
   for (int64_t i = 0; i < n; ++i) {
     horizontal_to_cartesian(lat[i], lon[i], alt[i], &x[i], &y[i], &z[i]);
+  }
+}
+
+// The points of P pixels over an altitude ladder of na steps, from the
+// pixels' terms as geo/wgs84.py horizontal_grid_to_cartesian computes them
+// (n, n (1 - e^2), cos lat, cos lon, sin lon, sin lat; each (P,)): out is
+// (P, na, 3), each point's three coordinates next to each other. The same
+// float64 operations in the same order as there, and no product feeds a
+// sum, so no multiply-add can form: the points are bit-equal. One OpenMP
+// task per pixel: each thread first touches the rows it writes.
+void atmonr_grid_h2c(const double* n, const double* nz, const double* cos_lat,
+                     const double* cos_lon, const double* sin_lon,
+                     const double* sin_lat, int64_t p, const double* alt,
+                     int64_t na, double* out) {
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < p; ++i) {
+    double* row = out + 3 * na * i;
+    for (int64_t a = 0; a < na; ++a) {
+      const double t = (n[i] + alt[a]) * cos_lat[i];
+      row[3 * a + 0] = t * cos_lon[i];
+      row[3 * a + 1] = t * sin_lon[i];
+      row[3 * a + 2] = (nz[i] + alt[a]) * sin_lat[i];
+    }
   }
 }
 

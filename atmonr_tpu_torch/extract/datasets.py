@@ -3,8 +3,9 @@ extinction field is queried, and how each grid is written out.
 
 The counterpart of the JAX package's ``extract/datasets.py``, over the
 port's own ``HARP2Dataset``. Every grid is built on the host in float64
-(meter-accurate geodesy from ``atmonr_tpu_torch.geo`` in numpy; the global
-grid's voxel walk in the host library, ``atmonr_tpu_torch.native``); the
+(meter-accurate geodesy from ``atmonr_tpu_torch.geo`` in numpy; the
+regional grids' points over their altitude ladder and the global grid's
+voxel walk in the host library, ``atmonr_tpu_torch.native``); the
 batched query on the card is ``atmonr_tpu_torch.extract.runner``. Four
 coordinate modes:
 
@@ -82,11 +83,12 @@ class _HARP2LocalExtractDataset(HARP2ExtractDataset):
 
     def _grid_from_latlon(self, lat2d: np.ndarray, lon2d: np.ndarray) -> None:
         """Expand a horizontal (H, W) lat/lon grid by the altitude ladder:
-        the geodesy once a pixel, broadcast over the ladder. ``lat`` and
-        ``lon`` are (H, W, na) read-only views of the 2-D grids."""
+        the geodesy once a pixel, expanded over the ladder in the host
+        library. ``lat`` and ``lon`` are (H, W, na) read-only views of the
+        2-D grids."""
         shape = lat2d.shape + self.sample_alt.shape
         with spans.span("extract.grid.points", count=int(np.prod(shape))):
-            xyz = wgs84.horizontal_grid_to_cartesian(lat2d, lon2d, self.sample_alt)
+            xyz = native.horizontal_grid_to_cartesian(lat2d, lon2d, self.sample_alt)
         self.lat = np.broadcast_to(lat2d[:, :, None], shape)
         self.lon = np.broadcast_to(lon2d[:, :, None], shape)
         self.xyz = xyz.reshape(-1, 3)

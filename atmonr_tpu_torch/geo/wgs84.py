@@ -43,6 +43,17 @@ def horizontal_to_cartesian(lat, lon, alt):
     return x, y, z
 
 
+def horizontal_grid_terms(lat, lon) -> tuple[np.ndarray, ...]:
+    """The per-pixel terms of ``horizontal_grid_to_cartesian`` of a
+    lat/lon grid [deg], in float64: ``(n, n (1 - e^2), cos lat, cos lon,
+    sin lon, sin lat)``, ``n`` the prime vertical radius of curvature."""
+    lat = np.asarray(lat, np.float64) * (math.pi / 180.0)
+    lon = np.asarray(lon, np.float64) * (math.pi / 180.0)
+    sin_lat = np.sin(lat)
+    n = WGS_84_A / np.sqrt(1.0 - (WGS_84_E * sin_lat**2))
+    return n, n * (1.0 - WGS_84_E), np.cos(lat), np.cos(lon), np.sin(lon), sin_lat
+
+
 def horizontal_grid_to_cartesian(lat, lon, alt) -> np.ndarray:
     """A horizontal (H, W) lat/lon grid [deg] times an (na,) altitude
     ladder [m] -> (H, W, na, 3) float64 ECEF, C-contiguous.
@@ -50,22 +61,19 @@ def horizontal_grid_to_cartesian(lat, lon, alt) -> np.ndarray:
     Bit-equal to ``horizontal_to_cartesian`` of the grid repeated over the
     ladder, every input cast to float64: each point goes through the same
     float64 operations in the same order, but the trigonometry and ``n``
-    are computed once a pixel and broadcast over the ladder, and the three
-    coordinates are written straight into the output.
+    are computed once a pixel (``horizontal_grid_terms``) and broadcast over
+    the ladder, and the three coordinates are written straight into the
+    output. The plain version of ``native.horizontal_grid_to_cartesian``.
     """
-    lat = np.asarray(lat, np.float64) * (math.pi / 180.0)
-    lon = np.asarray(lon, np.float64) * (math.pi / 180.0)
+    n, nz, cos_lat, cos_lon, sin_lon, sin_lat = horizontal_grid_terms(lat, lon)
     alt = np.asarray(alt, np.float64)
-    sin_lat = np.sin(lat)
-    n = WGS_84_A / np.sqrt(1.0 - (WGS_84_E * sin_lat**2))
-    cos_lat = np.cos(lat)[..., None]
-    out = np.empty(lat.shape + alt.shape + (3,), np.float64)
-    tmp = np.empty(lat.shape + alt.shape, np.float64)
+    out = np.empty(n.shape + alt.shape + (3,), np.float64)
+    tmp = np.empty(n.shape + alt.shape, np.float64)
     np.add(n[..., None], alt, out=tmp)
-    np.multiply(tmp, cos_lat, out=tmp)
-    np.multiply(tmp, np.cos(lon)[..., None], out=out[..., 0])
-    np.multiply(tmp, np.sin(lon)[..., None], out=out[..., 1])
-    np.add((n * (1.0 - WGS_84_E))[..., None], alt, out=tmp)
+    np.multiply(tmp, cos_lat[..., None], out=tmp)
+    np.multiply(tmp, cos_lon[..., None], out=out[..., 0])
+    np.multiply(tmp, sin_lon[..., None], out=out[..., 1])
+    np.add(nz[..., None], alt, out=tmp)
     np.multiply(tmp, sin_lat[..., None], out=out[..., 2])
     return out
 

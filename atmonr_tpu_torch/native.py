@@ -1,14 +1,16 @@
 """ctypes bindings of the port's host library, ``csrc/atmonr_native.cpp``
 (multithreaded with OpenMP): the counterpart of the JAX package's
 ``native`` bindings, with the same signatures and return layouts, plus
-``voxel_keys`` for the global grid.
+``voxel_keys`` for the global grid and ``horizontal_grid_to_cartesian`` for
+the regional grids' points.
 
 The library is built with ``g++`` at first use (``_build.build_host``).
 There is no numpy fallback: if it does not build or load, every entry point
 raises ``RuntimeError`` with the compiler's output. The numpy versions stay
 where they are, as the plain versions the tests hold these to:
 ``geo.wgs84.get_rays``, ``geo.wgs84.cartesian_to_horizontal`` /
-``horizontal_to_cartesian`` and ``extract.voxel_traversal.voxel_traversal_numpy``.
+``horizontal_to_cartesian`` / ``horizontal_grid_to_cartesian`` and
+``extract.voxel_traversal.voxel_traversal_numpy``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import numpy as np
 
 from atmonr_tpu_torch import _build
+from atmonr_tpu_torch.geo import wgs84
 
 OUTSIDE_BOX = "a traversed voxel lies outside the rays' bounding box"
 
@@ -30,6 +33,7 @@ _SIGNATURES = {
                                                ctypes.c_double, ctypes.c_int] + [_F32P] * 3),
     "atmonr_h2c": (None, [_F64P] * 3 + [ctypes.c_int64] + [_F64P] * 3),
     "atmonr_c2h": (None, [_F64P] * 3 + [ctypes.c_int64] + [_F64P] * 3),
+    "atmonr_grid_h2c": (None, [_F64P] * 6 + [ctypes.c_int64, _F64P, ctypes.c_int64, _F64P]),
     "atmonr_voxel_traversal": (None, [_F64P, _F64P, ctypes.c_int64, _I64P, _I32P, _I32P]),
     "atmonr_voxel_keys": (ctypes.c_int64, [_F64P, _F64P, ctypes.c_int64, _I64P, _I64P, _I64P,
                                            _I64P, _I32P]),
@@ -118,6 +122,31 @@ def cartesian_to_horizontal(x, y, z) -> tuple[np.ndarray, np.ndarray, np.ndarray
 def horizontal_to_cartesian(lat, lon, alt) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Bulk float64 geodetic -> ECEF (x, y, z)."""
     return _bulk("atmonr_h2c", lat, lon, alt)
+
+
+def horizontal_grid_to_cartesian(lat, lon, alt) -> np.ndarray:
+    """A horizontal (H, W) lat/lon grid [deg] times an (na,) altitude
+    ladder [m] -> (H, W, na, 3) float64 ECEF, C-contiguous, bit-equal to
+    ``geo.wgs84.horizontal_grid_to_cartesian``: the per-pixel terms in numpy
+    as there (``horizontal_grid_terms``), their expansion over the ladder in
+    the library, one OpenMP task per pixel. Counter:
+    ``horizontal_grid_to_cartesian.points``, the points written."""
+    lib = _lib()
+    terms = wgs84.horizontal_grid_terms(lat, lon)
+    shape = terms[0].shape
+    terms = [_flat(np.broadcast_to(t, shape), np.float64) for t in terms]
+    alt = np.asarray(alt, np.float64)
+    ladder = _flat(alt, np.float64)
+    out = np.empty(shape + alt.shape + (3,), np.float64)
+    p, na = terms[0].shape[0], ladder.shape[0]
+    if p and na:
+        lib.atmonr_grid_h2c(*(_ptr(t, _F64P) for t in terms), p, _ptr(ladder, _F64P), na,
+                            _ptr(out, _F64P))
+    horizontal_grid_to_cartesian.points += p * na
+    return out
+
+
+horizontal_grid_to_cartesian.points = 0
 
 
 def voxel_traversal(u: np.ndarray, end: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -36,7 +36,7 @@ from atmonr_tpu.extract.runner import run_extraction as jax_run_extraction
 from atmonr_tpu.extract.voxel_traversal import voxel_traversal as jax_voxel_traversal
 from atmonr_tpu.models import hash_grid as jhg
 from atmonr_tpu.pipelines.instant_ngp import InstantNGPPipeline as JaxPipeline
-from atmonr_tpu_torch import convert, get_extract_dataset, get_pipeline, run_extraction
+from atmonr_tpu_torch import convert, get_extract_dataset, get_pipeline, native, run_extraction
 from atmonr_tpu_torch.extract import datasets as tdatasets
 from atmonr_tpu_torch.extract.voxel_traversal import voxel_traversal
 from atmonr_tpu_torch.scripts import extract as extract_cli
@@ -200,6 +200,23 @@ def test_voxelgrid_without_dem_has_zero_heights(datasets, tmp_path):
         want = jax_get_extract_dataset("voxelgrid", jds, **kw)
     assert (got.height == 0).all()
     _same_grid(got, want, ("lat", "lon", "height", "sample_alt"))
+
+
+@pytest.mark.parametrize("mode", ["l1c", "voxelgrid"])
+def test_regional_grid_points_come_from_the_host_library(datasets, tmp_path, mode):
+    """The regional grids expand their pixels over the ladder in the host
+    library: its counter moves by the grid's points (the voxelgrid without
+    a DEM file, as above)."""
+    _, tds = datasets
+    kw = dict(alt_step=2000.0)
+    if mode == "voxelgrid":
+        kw = dict(horizontal_step=3000.0, alt_step=5000.0, dem_path=tmp_path / "none.nc")
+    before = native.horizontal_grid_to_cartesian.points
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the voxelgrid's zero surface heights
+        grid = get_extract_dataset(mode, tds, **kw)
+    assert len(grid) > 0
+    assert native.horizontal_grid_to_cartesian.points - before == len(grid)
 
 
 def test_interp_dem_height_matches_jax(tmp_path):

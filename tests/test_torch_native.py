@@ -1,7 +1,8 @@
 """The port's host library (``atmonr_tpu_torch/csrc/atmonr_native.cpp``
 through ``atmonr_tpu_torch.native``), on the CPU: each entry point against
 the port's own numpy version at the bounds ``tests/test_native.py`` holds
-the JAX package's library to, against that library bit for bit (same
+the JAX package's library to (the grid expansion, which that library
+lacks, bit for bit), against that library bit for bit (same
 source arithmetic, same flags, same machine), ``voxel_keys`` against the
 keys of the walked rows, the dataset's default ray builder and global grid
 built through it, and a build that fails raising with no numpy fallback.
@@ -114,6 +115,46 @@ def test_bulk_conversions_match_numpy():
     np.testing.assert_allclose(la1, la2, atol=1e-12, rtol=0)
     np.testing.assert_allclose(lo1, lo2, atol=1e-12, rtol=0)
     np.testing.assert_allclose(al1, al2, atol=1e-6, rtol=0)
+
+
+def _grid_case(case: str):
+    """(lat, lon, ladder) of one case of the grid expansion."""
+    rng = np.random.default_rng(7)
+    lat, lon = rng.uniform(-80, 80, (16, 8)), rng.uniform(-179, 179, (16, 8))
+    ladder = np.arange(0.0, 20000.0 + 12.5, 25.0)  # the benchmark cell's ladder
+    if case == "min-max":
+        ladder = np.arange(1000.0, 6000.0 + 250.0, 500.0)
+    elif case == "f32":
+        lat, lon, ladder = lat.astype(np.float32), lon.astype(np.float32), ladder.astype(np.float32)
+    elif case == "strided":
+        lat, lon = rng.uniform(-80, 80, (8, 16)).T, rng.uniform(-179, 179, (32, 8))[::2]
+    elif case == "poles":
+        lat[0], lat[1] = 90.0, -90.0
+        lon[:, 0], lon[:, 1] = 180.0, -180.0
+    elif case == "zero-pixels":  # all-NaN pixels, mapped to 0 as the L1C grid maps them
+        lat[2:5], lon[2:5] = np.nan, np.nan
+        lat, lon = np.nan_to_num(lat), np.nan_to_num(lon)
+    elif case == "no-pixels":
+        lat, lon = lat[:0], lon[:0]
+    elif case == "empty-ladder":
+        ladder = ladder[:0]
+    return lat, lon, ladder
+
+
+@pytest.mark.parametrize("case", ["ladder", "min-max", "f32", "strided", "poles", "zero-pixels",
+                                  "no-pixels", "empty-ladder"])
+def test_grid_to_cartesian_equals_numpy_bit_for_bit(case):
+    """The library's expansion of the per-pixel terms over the ladder is
+    ``wgs84.horizontal_grid_to_cartesian``'s, bit for bit: (H, W, na, 3)
+    C-contiguous float64, and the counter moves by the points written."""
+    lat, lon, ladder = _grid_case(case)
+    before = native.horizontal_grid_to_cartesian.points
+    got = native.horizontal_grid_to_cartesian(lat, lon, ladder)
+    want = wgs84.horizontal_grid_to_cartesian(lat, lon, ladder)
+    assert got.shape == want.shape == lat.shape + ladder.shape + (3,)
+    assert got.dtype == np.float64 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+    assert native.horizontal_grid_to_cartesian.points - before == lat.size * ladder.size
 
 
 @pytest.mark.parametrize("case", ["random", "degenerate", "long"])
@@ -271,6 +312,7 @@ def test_a_failed_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     calls = [
         lambda: native.build_rays(lat, lon, alt, thetav, phiv, 20000.0),
         lambda: native.cartesian_to_horizontal(lat, lon, alt),
+        lambda: native.horizontal_grid_to_cartesian(lat, lon, alt[0]),
         lambda: native.voxel_traversal(*_segments("random", 4)),
         lambda: native.voxel_keys(*_segments("random", 4), np.zeros(3), np.ones(3)),
     ]
