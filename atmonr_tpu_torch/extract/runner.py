@@ -31,6 +31,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from atmonr_tpu_torch.models.hash_grid import hash_encode_exact
 from atmonr_tpu_torch.ops.hash_gather import (
     hash_gather,
     prepare_table,
@@ -75,8 +76,9 @@ def run_extraction(
     through the pinned ring: on a card all of them, on the CPU none); a
     replay adds the K1 and K1p launches of its graph to
     ``hash_gather.launches``, ``quantize_tables.launches`` and
-    ``round_table_bf16.launches``, and its table preparations to
-    ``prepare_table.calls``; a capture adds none.
+    ``round_table_bf16.launches``, its table preparations to
+    ``prepare_table.calls`` and its exact gathers to
+    ``hash_encode_exact.calls``; a capture adds none.
 
     ``mesh`` (every rank of it calls): the batch is trimmed to a multiple
     of the mesh's W ranks, as in the JAX package, and the rank at (d, s)
@@ -255,9 +257,10 @@ def _capture(query, static_in: torch.Tensor) -> tuple[_CapturedQuery, torch.Tens
     it returns beside the graph, then the capture, which reads
     ``static_in`` at every replay."""
     out = query(static_in)  # lazy set-up (libraries, handles) before capture
-    # what the query's graph moves: K1's and K1p's launches, the table preparations
+    # what the query's graph moves: K1's and K1p's launches, the table
+    # preparations, the exact gathers
     counters = (hash_gather.launches, quantize_tables.launches, round_table_bf16.launches,
-                prepare_table.calls)
+                prepare_table.calls, hash_encode_exact.calls)
     before = [dict(c) for c in counters]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=torch.cuda.current_stream(static_in.device),

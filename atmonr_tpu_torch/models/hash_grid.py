@@ -25,6 +25,9 @@ table gradient is the CUDA kernel of ``ops/hash_bwd.py``, whatever the
 forward's precision. ``resolve_fwd_mode`` says which of them a grid config
 runs: it is the JAX package's TPU dispatch, a function of the config alone.
 Pair-bucket grids never reach a kernel: the kernels index per cell.
+The exact path (``"xla"``, and ``"xla_bf16"`` over the bf16-rounded
+table), ``hash_encode_exact``, opens the kernel path's spans and counts
+its calls in ``hash_encode_exact.calls[(mode, D)]``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ from functools import cached_property
 
 import numpy as np
 import torch
+from torch.autograd.graph import get_gradient_edge
+
+from atmonr_tpu_torch.utils import spans
 
 # spatial-hash primes, per the Instant-NGP paper (first dim intentionally 1)
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -43,6 +49,7 @@ _U32 = 0xFFFFFFFF
 FWD_MODES = ("auto", "xla", "bf16", "f32", "q8", "f8")
 # what resolve_fwd_mode returns: the four kernel modes and the two plain gathers
 KERNEL_MODES = ("bf16", "f32", "q8", "f8")
+EXACT_MODES = ("xla", "xla_bf16")
 # the JAX package runs q8 and f8 only where every level has at most this
 # many entries (its Pallas gate); larger grids compute the exact f32 gather
 MAX_QUANTIZED_LEVEL_ENTRIES = 1 << 16
@@ -340,8 +347,69 @@ def hash_encode(
         from atmonr_tpu_torch.ops.hash_gather import hash_encode_kernel
 
         return hash_encode_kernel(table, x, cfg, mode, sr_noise if mode == "q8" else None)
+    return hash_encode_exact(table, x, cfg, mode)
+
+
+def _exact(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig, mode: str) -> torch.Tensor:
+    """The exact gather of ``mode``; in ``"xla_bf16"`` over the table
+    rounded to bf16, inside the span ``hash_encode.prepare`` (its count the
+    table's rows), with the f32 table gradient straight through the cast
+    (rounded - table is exact, so the sum is the rounded value)."""
     if mode == "xla_bf16":
-        # the rounded table, with the f32 table gradient straight through
-        # the cast (rounded - table is exact, so the sum is the rounded value)
-        table = table + (table.to(torch.bfloat16).to(table.dtype) - table).detach()
+        with spans.span("hash_encode.prepare", count=len(table)):
+            table = table + (table.to(torch.bfloat16).to(table.dtype) - table).detach()
     return _hash_encode_exact(table, x, cfg)
+
+
+def hash_encode_exact(
+    table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig, mode: str
+) -> torch.Tensor:
+    """``hash_encode`` where ``resolve_fwd_mode`` gives ``"xla"`` or
+    ``"xla_bf16"``: the exact gather, differentiated by autograd in the
+    table and the positions. It opens the spans the kernel path opens
+    (``ops/hash_gather.py::_HashEncode``), with the same counts:
+    ``hash_encode.fwd`` (points) around the whole encode,
+    ``hash_encode.prepare`` (table rows) around the bf16 rounding, and
+    under autograd ``hash_encode.bwd`` (points) around its backward, on
+    autograd's device thread on a card. Each call adds one to
+    ``hash_encode_exact.calls[(mode, D)]``."""
+    if mode not in EXACT_MODES:
+        raise ValueError(f"no exact gather for mode {mode!r}; known: {EXACT_MODES}")
+    key = (mode, cfg.n_dims)
+    hash_encode_exact.calls[key] = hash_encode_exact.calls.get(key, 0) + 1
+    if torch.is_grad_enabled() and (table.requires_grad or x.requires_grad):
+        return _ExactEncode.apply(table, x, cfg, mode)
+    with spans.span("hash_encode.fwd", count=len(x)):
+        return _exact(table, x, cfg, mode)
+
+
+hash_encode_exact.calls = {(mode, d): 0 for mode in EXACT_MODES for d in (2, 3, 4)}
+
+
+class _ExactEncode(torch.autograd.Function):
+    """The exact gather with its backward inside ``hash_encode.bwd``: the
+    forward builds, with grad enabled, the graph autograd would build,
+    over detached aliases of the table and the positions; the backward
+    runs that graph's backward. The values, the gradients (bit for bit)
+    and the saved tensors are autograd's through ``_exact``; the context
+    holds the graph's output edge and the aliases that require grad (the
+    positions' storage only where autograd would keep it too), no tensor
+    of its own. First-order gradients only, as the kernel path's."""
+
+    @staticmethod
+    def forward(ctx, table, x, cfg, mode):
+        with spans.span("hash_encode.fwd", count=len(x)):
+            leaves = tuple(t.detach().requires_grad_(t.requires_grad) for t in (table, x))
+            with torch.enable_grad():
+                out = _exact(*leaves, cfg, mode)
+            ctx.edge = get_gradient_edge(out)
+            ctx.leaves = tuple(t if t.requires_grad else None for t in leaves)
+            ctx.points = len(x)
+            return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        wanted = [t for t in ctx.leaves if t is not None]
+        with spans.span("hash_encode.bwd", count=ctx.points):
+            grads = iter(torch.autograd.grad(ctx.edge, wanted, g))
+        return *(None if t is None else next(grads) for t in ctx.leaves), None, None

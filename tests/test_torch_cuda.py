@@ -695,12 +695,49 @@ def test_kernel_less_position_grid_on_the_card(dev, tmp_path, monkeypatch, varia
     assert all(bool(torch.isfinite(x)) for x in losses)
 
 
+def test_pair_bucket_step_opens_the_exact_spans_on_the_card(dev, tmp_path):
+    """A small pair-bucket Trainer's two steps and its refresh on the card,
+    spans recorded: the position grid's exact gather opens
+    ``hash_encode.fwd`` (its points) with ``hash_encode.prepare`` (its
+    rows) inside, as the surface grid's K1p + K1 do, and its backward
+    ``hash_encode.bwd`` (its points) on autograd's device thread under
+    ``trainer.backward``, as K2's; ``hash_encode_exact.calls[("xla_bf16",
+    3)]`` counts the two steps' encodes and the refresh's."""
+    from atmonr_tpu_torch.utils import spans
+
+    trainer = _small_trainer(tmp_path, dev, "auto", {"hashed_tile": "on"})
+    pipe = trainer.pipeline
+    rays, fine, cells = 250, 6, 8 * 8 * 4
+    before = dict(hg.hash_encode_exact.calls)
+    with spans.recording() as records:
+        losses = [trainer.step(torch.arange(rays, device=dev)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    moved = {k: v - before[k] for k, v in hg.hash_encode_exact.calls.items() if v != before[k]}
+    assert moved == {("xla_bf16", 3): 3}
+    of = {r.id: r for r in records}
+    step_thread = {r.thread for r in records if r.name == "trainer.step"}
+    fwd = sorted(r.count for r in records if r.name == "hash_encode.fwd")
+    assert fwd == sorted([rays * fine, rays] * 2 + [cells])
+    prep = sorted(r.count for r in records if r.name == "hash_encode.prepare")
+    surf_rows = next(iter(pipe.surf_enc.values())).shape[0]
+    assert prep == sorted([pipe.pos_cfg.total_params] * 3 + [surf_rows] * 2)
+    assert all(of[r.parent].name == "hash_encode.fwd" for r in records
+               if r.name == "hash_encode.prepare")
+    bwd = [r for r in records if r.name == "hash_encode.bwd"]
+    assert sorted(r.count for r in bwd) == sorted([rays * fine, rays] * 2)
+    assert all(of[r.parent].name == "trainer.backward" and r.thread not in step_thread
+               for r in bwd)
+
+
 def _encode_launches() -> dict:
-    """K1's and K1p's launches and the table preparations."""
+    """K1's and K1p's launches, the table preparations and the exact
+    gathers."""
     return {**{("K1",) + k: v for k, v in hgo.hash_gather.launches.items()},
             **{("K1p",) + k: v for k, v in hgo.quantize_tables.launches.items()},
             **{("K1p", "bf16", d): v for d, v in hgo.round_table_bf16.launches.items()},
-            **{("prepare",) + k: v for k, v in hgo.prepare_table.calls.items()}}
+            **{("prepare",) + k: v for k, v in hgo.prepare_table.calls.items()},
+            **{("exact",) + k: v for k, v in hg.hash_encode_exact.calls.items()}}
 
 
 _GRAPHED_EXTRACTIONS = {  # kind: (config, include_height)
@@ -722,7 +759,9 @@ def test_extraction_replays_a_cuda_graph(dev, kind):
     pinned ring, warms up on the first full batch, captures once, replays
     the second and drops the graph; after
     ``load_params`` (in place) the next call reads the new values; one full
-    batch and a tail capture nothing. The float64 points sit at float32
+    batch and a tail capture nothing. The exact gathers of the pair-bucket
+    and 4-D grids count one a batch in ``hash_encode_exact.calls``, replays
+    included. The float64 points sit at float32
     midpoints once normalized, where a product with the reciprocal of the
     scale rounds other ways: the card's ``normalize`` equals the host's
     normalisation bit for bit, and each sigma equals the eager query's
@@ -792,8 +831,10 @@ def test_extraction_replays_a_cuda_graph(dev, kind):
     want, want_launches = eager()
     assert want.shape[0] == n and (want > 0).mean() > 0.1
     mode = {"q8": "q8", "bf16_2^21": "bf16"}.get(kind)
+    exact = {"pb": 3, "ngp_height": 4}.get(kind)  # the exact gather's D
     assert want_launches == ({} if mode is None else {
-        (k, mode, 3): full + 1 for k in ("K1", "K1p", "prepare")})
+        (k, mode, 3): full + 1 for k in ("K1", "K1p", "prepare")}) | (
+        {} if exact is None else {("exact", "xla_bf16", exact): full + 1})
     for _ in range(2):  # each call captures on its first full batch and replays the rest
         got, got_counts, got_launches = graphed(xyz[:n])
         assert got_counts == (full - 1, 2, 1, 3) and got_launches == want_launches

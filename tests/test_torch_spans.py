@@ -4,7 +4,8 @@ on, nesting, parents and step ids across threads, ``record_function`` only
 under an active profiler, the summary; a small Instant-NGP Trainer's steps
 and ``run_extraction``'s batches with the recorder on and off; the spans in
 ``Trainer.iterate(profile=True)``'s trace; a small hierarchical NeRF's
-passes, in its train steps and its extraction."""
+passes, in its train steps and its extraction; the exact gather's spans
+and its call counter."""
 
 import json
 import threading
@@ -395,3 +396,79 @@ def test_nerf_extraction_opens_encode_and_mlp_spans(nerf_steps):
     (enc,), (mlp,) = by["nerf.encode"], by["nerf.mlp"]
     assert enc.count == mlp.count == 37 and enc.end_ns <= mlp.start_ns
     assert torch.equal(sigma, tr.pipeline.extract(pts))
+
+
+def _exact_case(options: dict, n_dims: int, m: int = 300):
+    from atmonr_tpu_torch.models import hash_grid as hg
+
+    cfg = hg.HashGridConfig.from_options(dict({
+        "n_levels": 4, "n_features_per_level": 2, "log2_hashmap_size": 9,
+        "base_resolution": 4, "per_level_scale": 2.0}, **options), n_dims)
+    g = torch.Generator().manual_seed(n_dims)
+    table = (torch.rand((cfg.total_params, 2), generator=g) - 0.5).requires_grad_(True)
+    return cfg, table, torch.rand((m, n_dims), generator=g)
+
+
+@pytest.mark.parametrize("options,n_dims,mode", [
+    ({"hashed_tile": "on"}, 3, "xla_bf16"),  # the pair-bucket grid: the bf16 table
+    ({"fwd_mode": "xla"}, 3, "xla"),
+    ({"fwd_mode": "xla"}, 2, "xla"),
+    ({}, 4, "xla_bf16"),  # a 4-D grid: no kernel takes it
+], ids=["pair_bucket", "xla 3-D", "xla 2-D", "bf16 4-D"])
+def test_the_exact_gather_opens_the_kernel_paths_spans(options, n_dims, mode):
+    """The exact path opens the spans the kernel path opens, with its
+    counts: ``hash_encode.fwd`` (points), inside it ``hash_encode.prepare``
+    (table rows) where the table is rounded to bf16, and under autograd
+    ``hash_encode.bwd`` (points) inside the caller's backward; a forward
+    with no graph opens no ``bwd``. Each call adds one to
+    ``hash_encode_exact.calls[(mode, D)]`` and to no other key."""
+    from atmonr_tpu_torch.models import hash_grid as hg
+
+    cfg, table, x = _exact_case(options, n_dims)
+    assert hg.resolve_fwd_mode(cfg) == mode
+    before = dict(hg.hash_encode_exact.calls)
+    with spans.recording() as records:
+        with spans.span("caller.forward"):
+            out = hg.hash_encode(table, x, cfg)
+        with spans.span("caller.backward"):
+            out.sum().backward()
+        with torch.no_grad(), spans.span("caller.query"):
+            hg.hash_encode(table, x[:7], cfg)
+    of, by = {r.id: r for r in records}, _by_name(records)
+    assert [(of[r.parent].name, r.count) for r in by["hash_encode.fwd"]] == [
+        ("caller.forward", 300), ("caller.query", 7)]
+    assert [(of[r.parent].name, r.count) for r in by["hash_encode.bwd"]] == [
+        ("caller.backward", 300)]
+    prepared = [(of[r.parent].name, r.count) for r in by.get("hash_encode.prepare", [])]
+    assert prepared == ([("hash_encode.fwd", cfg.total_params)] * 2 if mode == "xla_bf16" else [])
+    moved = {k: v - before.get(k, 0) for k, v in hg.hash_encode_exact.calls.items()
+             if v != before.get(k, 0)}
+    assert moved == {(mode, n_dims): 2}
+
+
+def test_the_exact_gather_records_nothing_when_off(monkeypatch):
+    """Outside ``recording()`` the exact path's spans are the shared
+    no-op, and its output and gradient are the same as with them on (on
+    one thread: the CPU's threaded index backward sums duplicate rows in a
+    varying order)."""
+    from _torch_threads import one_torch_thread
+    from atmonr_tpu_torch.models import hash_grid as hg
+
+    cfg, table, x = _exact_case({"hashed_tile": "on"}, 3)
+    returned, real = [], spans.span
+
+    def watching(*args, **kwargs):
+        returned.append(real(*args, **kwargs))
+        return returned[-1]
+
+    monkeypatch.setattr(spans, "span", watching)
+    with one_torch_thread():
+        out = hg.hash_encode(table, x, cfg)
+        out.sum().backward()
+        off = (out.detach(), table.grad.clone())
+        assert len(returned) == 3 and all(r is spans._NO_SPAN for r in returned)
+        table.grad = None
+        with spans.recording():
+            out = hg.hash_encode(table, x, cfg)
+            out.sum().backward()
+    assert torch.equal(off[0], out.detach()) and torch.equal(off[1], table.grad)
